@@ -1,0 +1,125 @@
+"""JAX variable tree → the port's ``state_dict``.
+
+The JAX package keeps Flax variables (``params``, ``sn``, ``batch_stats``)
+in NHWC layouts: linear kernels (in, out), conv kernels HWIO.  The port's
+modules use the upstream torch names and layouts: (out, in) and OIHW.  This
+is the port's own copy of the generator key map of
+``ic_gan_tpu/io/torch_import.py`` (there it maps torch → JAX; here the
+transforms run JAX → torch), extended by the ``accum_counter`` buffers.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from ic_gan_tpu_torch.models.biggan import BigGANConfig, g_arch
+
+Path = Tuple[str, ...]
+
+
+def _t_linear(w):  # (in, out) → (out, in)
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def _t_conv(w):  # HWIO → OIHW
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+
+def _ident(w):
+    return np.array(w)
+
+
+def _sn_entries(dst, tree_path, torch_prefix):
+    dst[("sn",) + tree_path + ("u",)] = (f"{torch_prefix}.u0", _ident)
+    dst[("sn",) + tree_path + ("sv",)] = (f"{torch_prefix}.sv0", _ident)
+
+
+def _dense(dst, tree_path, torch_prefix, bias=True):
+    dst[("params",) + tree_path + ("kernel",)] = (f"{torch_prefix}.weight", _t_linear)
+    if bias:
+        dst[("params",) + tree_path + ("bias",)] = (f"{torch_prefix}.bias", _ident)
+    _sn_entries(dst, tree_path, torch_prefix)
+
+
+def _conv(dst, tree_path, torch_prefix, bias=True):
+    dst[("params",) + tree_path + ("kernel",)] = (f"{torch_prefix}.weight", _t_conv)
+    if bias:
+        dst[("params",) + tree_path + ("bias",)] = (f"{torch_prefix}.bias", _ident)
+    _sn_entries(dst, tree_path, torch_prefix)
+
+
+def _bn_stats(dst, tree_path, torch_prefix):
+    for jax_name, torch_name in (("mean", "stored_mean"), ("var", "stored_var"),
+                                 ("accum_counter", "accum_counter")):
+        dst[("batch_stats",) + tree_path + ("bn", jax_name)] = (
+            f"{torch_prefix}.{torch_name}", _ident)
+
+
+def _ccbn(dst, tree_path, torch_prefix):
+    _dense(dst, tree_path + ("gain",), f"{torch_prefix}.gain", bias=False)
+    _dense(dst, tree_path + ("bias",), f"{torch_prefix}.bias", bias=False)
+    _bn_stats(dst, tree_path, torch_prefix)
+
+
+def _attention(dst, tree_path, torch_prefix):
+    for name in ("theta", "phi", "g", "o"):
+        _conv(dst, tree_path + (name,), f"{torch_prefix}.{name}", bias=False)
+    dst[("params",) + tree_path + ("gamma",)] = (f"{torch_prefix}.gamma", _ident)
+
+
+def generator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]:
+    """JAX variable path → (torch key, transform) for the generator."""
+    if cfg.class_cond:
+        raise NotImplementedError("the class-conditional generator is not ported yet")
+    arch = g_arch(cfg.resolution, cfg.G_ch, cfg.G_attn)
+    m: Dict[Path, Tuple[str, Callable]] = {}
+    if cfg.instance_cond and cfg.G_shared_feat:
+        _dense(m, ("shared_feat",), "shared_feat")
+    _dense(m, ("linear",), "linear")
+    for i in range(len(arch["out_channels"])):
+        p = ("block_%d" % i,)
+        t = f"blocks.{i}.0"
+        _ccbn(m, p + ("bn1",), f"{t}.bn1")
+        _ccbn(m, p + ("bn2",), f"{t}.bn2")
+        _conv(m, p + ("conv1",), f"{t}.conv1")
+        _conv(m, p + ("conv2",), f"{t}.conv2")
+        if arch["in_channels"][i] != arch["out_channels"][i] or arch["upsample"][i]:
+            _conv(m, p + ("conv_sc",), f"{t}.conv_sc")
+        if arch["attention"][i]:
+            _attention(m, ("attn_%d" % i,), f"blocks.{i}.1")
+    m[("params", "output_bn", "gain")] = ("output_layer.0.gain", _ident)
+    m[("params", "output_bn", "bias")] = ("output_layer.0.bias", _ident)
+    _bn_stats(m, ("output_bn",), "output_layer.0")
+    _conv(m, ("output_conv",), "output_layer.2")
+    return m
+
+
+def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, Any]:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = v
+    return flat
+
+
+def generator_state_dict_from_jax(variables: Mapping, cfg: BigGANConfig
+                                  ) -> Dict[str, torch.Tensor]:
+    """The port's generator ``state_dict`` (CPU tensors) from a float32 JAX
+    variable tree with numpy (or JAX) leaves.  A folded tree (no ``sn``
+    collection) gives a folded state dict, without ``u0``/``sv0``: load it
+    into a generator that ``io.deploy.fold_spectral_norm`` has folded."""
+    flat = _flatten(variables)
+    folded = "sn" not in variables
+    out = {}
+    for path, (key, transform) in generator_key_map(cfg).items():
+        if folded and path[0] == "sn":
+            continue
+        if path not in flat:
+            raise KeyError(f"JAX variables are missing {'/'.join(path)}")
+        out[key] = torch.from_numpy(transform(flat[path]))
+    return out
