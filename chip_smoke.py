@@ -2,24 +2,31 @@
 """Drive the PyTorch/CUDA port of IC-GAN on one GPU and check it.
 
     python3 chip_smoke.py              # needs one CUDA card and nvcc
-    python3 chip_smoke.py --profile    # adds a device-time breakdown of one batch
+    python3 chip_smoke.py --profile    # adds device-time breakdowns of one
+                                       # sampler batch and one train step
 
 Phases, run in order; any failure ends the run with a non-zero exit:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
 2. build every kernel under ``ic_gan_tpu_torch/csrc`` with nvcc, in parallel,
    into ``ic_gan_tpu_torch/build/``;
-3. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes and a few others, with the tolerance stated beside each;
-4. kernel timings at the main shape: the kernel, its plain version, one
+3. every kernel against its plain PyTorch version on the card, at the two
+   paths' shapes and a few others, with the tolerance stated beside each;
+4. kernel timings at the paths' shapes: the kernel, its plain version, one
    library call computing the same function (a yardstick the port never
    calls), and the least time the card could take;
-5. the main path: the 256² ch96 IC-GAN BigGAN generator with random weights
-   from a seed, σ folded, bf16, behind ``make_sampler(batch_size=128)``,
+5. the sampler path: the 256² ch96 IC-GAN BigGAN generator with random
+   weights from a seed, σ folded, bf16, behind ``make_sampler(batch_size=128)``,
    answering requests of 128, 200 and 1 images; kernel launches are counted
    over exactly these requests; then images per second at batch 128;
 6. whole-generator parity: the same folded weights on the card in bf16 and
-   in f32 against the CPU in f32.
+   in f32 against the CPU in f32;
+7. the training path: the 256² ch96 G and D from a seed, bf16 compute,
+   ``make_train_step`` at microbatch 32, one warm-up and 5 timed steps;
+   kernel launches are counted over exactly these steps; then ms per step
+   and images per second;
+8. train-step parity: one step of a res-64 ch-16 G and D in f32 from the
+   same weights and z on the card and on the CPU.
 
 The last three lines of standard output are the card (name, power limit),
 one JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -39,10 +47,17 @@ import torch.nn.functional as F
 from torch.nn.utils import skip_init
 
 from ic_gan_tpu_torch.io.deploy import cast_params, fold_spectral_norm, make_sampler
-from ic_gan_tpu_torch.models.biggan import BigGANConfig, Generator
-from ic_gan_tpu_torch.models.layers import SelfAttention
+from ic_gan_tpu_torch.models.biggan import BigGANConfig, Discriminator, Generator
+from ic_gan_tpu_torch.models.layers import CrossReplicaBatchNorm, SelfAttention
 from ic_gan_tpu_torch.ops import _build
-from ic_gan_tpu_torch.ops.attention import sagan_attention, sagan_attention_ref
+from ic_gan_tpu_torch.ops.attention import (
+    sagan_attention_bwd,
+    sagan_attention_bwd_ref,
+    sagan_attention_fwd,
+    sagan_attention_ref,
+)
+from ic_gan_tpu_torch.train.state import GANTrainState
+from ic_gan_tpu_torch.train.step import TrainConfig, make_train_step
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, FP32 outside them,
 # and HBM3 bandwidth.  The card's power limit is printed beside every time.
@@ -63,6 +78,23 @@ ATTN_CASES = [
     ("narrow ragged f32", (3, 77, 19, 8, 16), torch.float32, 2e-5),
 ]
 
+# The training path's attention shapes at microbatch 32: G at 64², and D's
+# block 1 (192 channels) at 64², where D sees fake and real together (N 64).
+TRAIN_G_ATTN = (32, 4096, 1024, 48, 192)
+TRAIN_D_ATTN = (64, 4096, 1024, 24, 96)
+# (name, shape).  Bars: f32, the JAX bar atol 1e-4 (tests/test_pallas_attention.py:62)
+# relative to max(1, max|plain|), since dφ and dg sum over up to 4096 queries
+# in another order than cuBLAS; bf16, the JAX bar atol 5e-2 with rtol 2e-2
+# (:96-98), as both sides round the same f32 sums to bf16.
+BWD_CASES = [
+    ("G", TRAIN_G_ATTN),
+    ("D", TRAIN_D_ATTN),
+    ("ragged", (4, 1000, 250, 48, 192)),
+    ("narrow ragged", (3, 77, 19, 8, 16)),
+]
+BWD_F32_ATOL = 1e-4
+BWD_BF16_TOL = dict(atol=5e-2, rtol=2e-2)
+
 MAIN_G = dict(resolution=256, G_ch=96, G_attn="64")  # the icgan res256 geometry
 SAMPLER_BATCH = 128
 REQUESTS = (128, 200, 1)
@@ -76,6 +108,23 @@ PARITY_BATCH = 2
 BF16_MAX_BAR = 0.25
 BF16_MEAN_BAR = 0.02
 F32_BAR = 1e-3     # card f32 against CPU f32; 2e-4 is the aim
+
+# The training path: the flagship geometry of README.md, the JAX train
+# bench's 256² cell (benchmarks/bench_train_step.py:39-98, ema_start 0).
+TRAIN_MODEL = dict(resolution=256, G_ch=96, D_ch=96, G_attn="64", D_attn="64")
+TRAIN_MB = 32
+TRAIN_STEPS = 5
+# Card-against-CPU train step: f32, TF32 off.  Raw gradients: max|Δ| ≤
+# 1e-2·max|ref| + 1e-5·(largest gradient of the network), per tensor.  f32
+# reassociation noise amplified through batch norm at microbatch 4 and ReLU
+# flips reaches 3e-3 of a tensor's largest entry between two CPU
+# implementations (tests/test_torch_port_train.py), and the floor covers the
+# biases before a batch norm, whose true gradient is 0.  adam_eps 1e-3 keeps
+# D's first Adam step smooth in its gradient, as there.  SN and BN state:
+# 1e-3 of the tensor's largest entry.
+PARITY_MODEL = dict(resolution=64, G_ch=16, D_ch=16, G_attn="32", D_attn="32")
+PARITY_MB = 4
+PARITY_GRAD_REL, PARITY_GRAD_FLOOR, PARITY_STATE_REL = 1e-2, 1e-5, 1e-3
 
 
 def log(msg: str):
@@ -108,6 +157,19 @@ def attention_bound_ms(shape, dtype):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_bwd_bound_ms(shape, dtype):
+    """Least time for (dθ, dφ, dg): 2·N·Lq·Lk·(3d + 2dv) operations (the
+    logits, dp, dθ, dφ and dg products) over the peak rate, against θ, φ, g
+    and do read once and the three gradients written once."""
+    n, lq, lk, d, dv = shape
+    flops = 2.0 * n * lq * lk * (3 * d + 2 * dv)
+    inputs = n * lq * d + n * lk * d + n * lk * dv + n * lq * dv
+    grads = n * lq * d + n * lk * d + n * lk * dv
+    nbytes = torch.finfo(dtype).bits // 8 * (inputs + grads)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def generator_flops_per_image(cfg) -> float:
     """Multiply-adds ×2 of one image through G, from its shapes: the
     polyphase up-convs (4 taps per output), 3×3 and 1×1 convs, the attention
@@ -126,15 +188,19 @@ def generator_flops_per_image(cfg) -> float:
     return total + 2 * r * r * 9 * arch["out_channels"][-1] * 3
 
 
-def attention_inputs(shape, dtype, seed=0, device="cuda"):
+def attention_inputs(shape, dtype, seed=0, device="cuda", with_do=False):
     """θ, φ ~ N(0, 1) and g ~ N(0, 0.25): the outputs, convex mixtures of g's
     rows, stay below 4 in magnitude, where one bf16 ulp (1/64) is under the
-    3e-2 bar; both sides round the output to bf16."""
+    3e-2 bar; both sides round the output to bf16.  ``with_do`` adds an
+    output gradient do ~ N(0, 1)."""
     n, lq, lk, d, dv = shape
     gen = torch.Generator(device=device).manual_seed(seed)
     theta, phi, g = (torch.randn(s, generator=gen, device=device)
                      for s in ((n, lq, d), (n, lk, d), (n, lk, dv)))
-    return theta.to(dtype), phi.to(dtype), (0.5 * g).to(dtype)
+    out = [theta.to(dtype), phi.to(dtype), (0.5 * g).to(dtype)]
+    if with_do:
+        out.append(torch.randn((n, lq, dv), generator=gen, device=device).to(dtype))
+    return out
 
 
 # --- phases ---------------------------------------------------------------------
@@ -163,17 +229,19 @@ def phase_build():
     log(f"build: {len(logs)} of {len(_build.sources())} sources compiled in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
+        log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} registers a "
+            f"thread; {sum(1 for b in spills if b)} spill, at most {max(spills, default=0)} bytes")
 
 
-def phase_kernels() -> float:
-    """Each case: max |kernel - plain| on the card.  Returns the main bf16 error."""
+def phase_kernels() -> dict:
+    """Each case: max |kernel - plain| on the card.  Returns each kernel's
+    error at its path's main bf16 shape."""
     errs = {}
     for name, shape, dtype, atol in ATTN_CASES:
         args = attention_inputs(shape, dtype)
-        got = sagan_attention(*args)
+        got = sagan_attention_fwd(*args)
         ref = sagan_attention_ref(*args)
         torch.cuda.synchronize()
         if got.shape != ref.shape or got.dtype != ref.dtype:
@@ -184,26 +252,116 @@ def phase_kernels() -> float:
         if not err <= atol:
             raise AssertionError(f"attention {name}: max abs err {err} > {atol}")
         errs[name] = err
-    return errs["main bf16"]
+    bwd_err = None
+    for name, shape in BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = attention_inputs(shape, dtype, with_do=True)
+            got = sagan_attention_bwd(*args)
+            torch.cuda.synchronize()
+            ref = sagan_attention_bwd_ref(*args)
+            worst = 0.0
+            for gname, t, r, inp in zip(("dtheta", "dphi", "dg"), got, ref, args):
+                if t.shape != inp.shape or t.dtype != inp.dtype or r.dtype != inp.dtype:
+                    raise AssertionError(f"attention bwd {name} {gname}: {t.shape}/{t.dtype}")
+                d = (t.float() - r.float()).abs()
+                rmax = r.float().abs().max().item()
+                if dtype == torch.float32:
+                    bar = BWD_F32_ATOL * max(1.0, rmax)
+                    ok = d.max().item() <= bar
+                    how = f"bar {bar:.3e} = 1e-4·max(1, {rmax:.3e})"
+                else:
+                    ok = bool((d <= BWD_BF16_TOL["atol"]
+                               + BWD_BF16_TOL["rtol"] * r.float().abs()).all())
+                    how = "atol 5e-2 + rtol 2e-2"
+                log(f"attention bwd {name} {shape} {str(dtype)[6:]} {gname}: max|kernel - plain| "
+                    f"= {d.max().item():.3e}, max|plain| {rmax:.3e} ({how})")
+                if not ok:
+                    raise AssertionError(f"attention bwd {name} {dtype} {gname} out of bar")
+                worst = max(worst, d.max().item())
+            if name == "G" and dtype == torch.bfloat16:
+                bwd_err = worst
+            del got, ref, args
+            torch.cuda.empty_cache()  # the plain version's (N, Lq, Lk) f32 temps
+    return dict(fwd=errs["main bf16"], bwd=bwd_err)
+
+
+def sdpa_bwd_ms(args) -> float:
+    """The backward of ``F.scaled_dot_product_attention(..., scale=1.0)`` on
+    the same inputs and output gradient: its forward+backward less its
+    forward.  A yardstick only; the port never calls it."""
+    theta, phi, g, do = (a.unsqueeze(1) for a in args)  # one head
+    q, k, v = (a.detach().requires_grad_(True) for a in (theta, phi, g))
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, scale=1.0)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (q, k, v), do)
+
+    with torch.no_grad():
+        t_fwd = cuda_ms(fwd)
+    return cuda_ms(fwd_bwd) - t_fwd
 
 
 def phase_timings() -> dict:
     args = attention_inputs(MAIN_ATTN, torch.bfloat16)
     t = dict(
-        kernel_ms=cuda_ms(lambda: sagan_attention(*args)),
+        kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*args)),
         plain_ms=cuda_ms(lambda: sagan_attention_ref(*args)),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*args, scale=1.0)),
     )
     t["bound_ms"], t["bound_by"] = attention_bound_ms(MAIN_ATTN, torch.bfloat16)
     args32 = attention_inputs(MAIN_ATTN, torch.float32)
-    f32 = dict(kernel_ms=cuda_ms(lambda: sagan_attention(*args32)),
+    f32 = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*args32)),
                plain_ms=cuda_ms(lambda: sagan_attention_ref(*args32)))
     f32["bound_ms"], _ = attention_bound_ms(MAIN_ATTN, torch.float32)
     log("attention bf16 {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
         "library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by})".format(MAIN_ATTN, **t))
     log("attention f32 {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
         "bound_ms {bound_ms:.4f}".format(MAIN_ATTN, **f32))
+    del args, args32
+    t["train_shapes"] = {}
+    for label, shape in (("G", TRAIN_G_ATTN), ("D", TRAIN_D_ATTN)):
+        a = attention_inputs(shape, torch.bfloat16)
+        ts = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*a)),
+                  plain_ms=cuda_ms(lambda: sagan_attention_ref(*a)),
+                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*a, scale=1.0)))
+        ts["bound_ms"], ts["bound_by"] = attention_bound_ms(shape, torch.bfloat16)
+        t["train_shapes"][label] = ts
+        log("attention bf16 train {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+            "library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by})".format(
+                label, shape, **ts))
     return t
+
+
+def phase_bwd_timings() -> dict:
+    """The backward at the training shapes, bf16: kernel, plain version,
+    the library's backward and the bound."""
+    out = {}
+    for label, shape in (("G", TRAIN_G_ATTN), ("D", TRAIN_D_ATTN)):
+        args = attention_inputs(shape, torch.bfloat16, with_do=True)
+        t = dict(kernel_ms=cuda_ms(lambda: sagan_attention_bwd(*args)),
+                 plain_ms=cuda_ms(lambda: sagan_attention_bwd_ref(*args), reps=3, warmup=1))
+        torch.cuda.empty_cache()
+        t["library_ms"] = sdpa_bwd_ms(args)
+        t["bound_ms"], t["bound_by"] = attention_bwd_bound_ms(shape, torch.bfloat16)
+        log("attention bwd bf16 {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+            "library_ms {library_ms:.4f} (SDPA fwd+bwd less fwd)  bound_ms {bound_ms:.4f} "
+            "({bound_by})".format(label, shape, **t))
+        out[label] = t
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def set_gamma(*nets):
+    """Every attention gamma at 0.5, off its zero init, so that attention
+    shows in the outputs and its gradients are not zero."""
+    with torch.no_grad():
+        for net in nets:
+            for m in net.modules():
+                if isinstance(m, SelfAttention):
+                    m.gamma.fill_(0.5)
 
 
 def build_generator(device):
@@ -213,10 +371,7 @@ def build_generator(device):
     of its folded f32 weights."""
     cfg = BigGANConfig(**MAIN_G, dtype=torch.bfloat16)
     g = Generator(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
-    with torch.no_grad():
-        for m in g.modules():
-            if isinstance(m, SelfAttention):
-                m.gamma.fill_(0.5)
+    set_gamma(g)
     fold_spectral_norm(g)
     weights = {k: v.detach().clone() for k, v in g.state_dict().items()}
     cast_params(g, torch.bfloat16)
@@ -237,15 +392,15 @@ def phase_main_path(device) -> dict:
                 for n in REQUESTS]
     torch.cuda.synchronize()
 
-    sagan_attention.launches = 0
+    sagan_attention_fwd.launches = sagan_attention_bwd.launches = 0
     per_request = []
     for z, feats in requests:
-        before = sagan_attention.launches
+        before = sagan_attention_fwd.launches
         imgs = sampler(z, feats=feats, device_output=True)
         torch.cuda.synchronize()
         n = z.shape[0]
         batches = math.ceil(n / SAMPLER_BATCH)
-        launched = sagan_attention.launches - before
+        launched = sagan_attention_fwd.launches - before
         finite = bool(torch.isfinite(imgs).all())
         lo, hi = imgs.min().item(), imgs.max().item()
         log(f"request {n}: images {tuple(imgs.shape)} {imgs.dtype} in [{lo:.4f}, {hi:.4f}], "
@@ -257,9 +412,10 @@ def phase_main_path(device) -> dict:
         if launched != batches:
             raise AssertionError(f"request {n}: {launched} attention launches for {batches} batches")
         per_request.append(imgs.float().std().item())
-    launches = sagan_attention.launches
-    if launches == 0:
-        raise AssertionError("the main path launched no attention kernel")
+    launches = sagan_attention_fwd.launches
+    if launches == 0 or sagan_attention_bwd.launches != 0:
+        raise AssertionError(f"the sampler path launched the attention kernels "
+                             f"{launches} and {sagan_attention_bwd.launches} times")
     if min(per_request) == 0.0:
         raise AssertionError("constant images")
 
@@ -285,22 +441,22 @@ def phase_main_path(device) -> dict:
                 requests=requests)
 
 
-def phase_profile(main):
-    """Device time of one sampler batch by kernel, from torch.profiler."""
+def phase_profile(label, fn):
+    """Device time of one call of ``fn`` by kernel, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    z, feats = main["requests"][0]
-    sampler = main["sampler"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sampler(z, feats=feats, device_output=True)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # operator rows repeat their kernels' time
+        # Operator rows and annotations ("Optimizer.step#Adam.step") repeat
+        # their kernels' time.
+        if e.device_type != DeviceType.CUDA or re.fullmatch(r"[\w.]+#[\w.]+", e.key):
             continue
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
@@ -311,10 +467,37 @@ def phase_profile(main):
     if total == 0:
         log("profile: the trace holds no device time (not measured)")
         return
-    log(f"profile: one batch of {SAMPLER_BATCH}: wall {1e3 * wall:.2f} ms, device busy "
+    log(f"profile: {label}: wall {1e3 * wall:.2f} ms, device busy "
         f"{total:.2f} ms ({100 * total / (1e3 * wall):.1f} % of wall)")
+    classes = {}
+    for ms, count, key in rows:
+        c = kernel_class(key)
+        classes[c] = tuple(a + b for a, b in zip(classes.get(c, (0.0, 0)), (ms, count)))
+    for c, (ms, count) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
+        log(f"  class {c:<34s} {ms:9.3f} ms {100 * ms / total:5.1f} %  x{count}")
     for ms, count, key in sorted(rows, reverse=True)[:25]:
         log(f"  {ms:9.3f} ms {100 * ms / total:5.1f} %  x{count:<4d} {key[:110]}")
+
+
+# (class, substrings of the kernel name), matched in order.
+_KERNEL_CLASSES = (
+    ("attention forward B1", ("sagan_attention_fwd",)),
+    ("attention backward B2", ("attn_bwd_",)),
+    ("cuDNN NCHW<->NHWC transforms", ("nchwToNhwc", "nhwcToNchw")),
+    ("convs (cuDNN)", ("xmma", "implicit_gemm", "conv", "dgrad", "wgrad")),
+    ("matmuls (cuBLAS and others)", ("gemm", "gemv", "nvjet", "Gemm")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and concatenation", ("copy", "Cat")),
+    ("optimizer", ("multi_tensor", "adam", "Adam")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_class(key: str) -> str:
+    for name, parts in _KERNEL_CLASSES:
+        if any(p in key for p in parts):
+            return name
+    return "other"
 
 
 def phase_parity(main, device) -> None:
@@ -354,24 +537,209 @@ def phase_parity(main, device) -> None:
                              f"f32 {err32}")
 
 
+def train_flops_per_step(cfg, mb) -> float:
+    """Operations of one train step from the shapes: G forward is
+    ``generator_flops_per_image``; D forward counts its convs (the pooled
+    conv2 as a 4×4 stride-2 conv), 1×1 shortcuts and attention; linears are
+    left out.  A backward costs twice its forward, half of that for the
+    input gradients.  D phase: G forward on mb, D forward and backward on
+    2·mb; G phase: G forward and backward, D forward and input gradients,
+    on mb."""
+    arch = cfg.d_arch
+    d_img = 0.0
+    r = cfg.resolution
+    for i, (cin, cout) in enumerate(zip(arch["in_channels"], arch["out_channels"])):
+        down = arch["downsample"][i]
+        r_out = r // 2 if down else r
+        d_img += 2 * r * r * 9 * cin * cout                      # conv1 (wide)
+        d_img += 2 * r_out * r_out * (16 if down else 9) * cout * cout  # conv2
+        if cin != cout or down:
+            d_img += 2 * r_out * r_out * cin * cout               # conv_sc after the pool
+        if arch["attention"][i]:
+            hw, c8, c2 = r_out * r_out, cout // 8, cout // 2
+            d_img += 2 * hw * (cout * (2 * c8 + c2) + hw // 4 * (c8 + c2) + c2 * cout)
+        r = r_out
+    g_img = generator_flops_per_image(cfg)
+    return mb * ((g_img + 2 * 3 * d_img) + (3 * g_img + 2 * d_img))
+
+
+def build_gan(model, dtype, device, seed):
+    """G and D with the port's init from a seed, gamma 0.5."""
+    cfg = BigGANConfig(**model, dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = Generator(cfg, device=device, generator=gen)
+    d = Discriminator(cfg, device=device, generator=gen)
+    set_gamma(g, d)
+    return cfg, g, d
+
+
+def phase_train(device, profile: bool) -> dict:
+    t0 = time.perf_counter()
+    cfg, g, d = build_gan(TRAIN_MODEL, torch.bfloat16, device, seed=3)
+    tcfg = TrainConfig(ema_start=0)
+    state = GANTrainState.create(g, d, tcfg.g_optimizer(), tcfg.d_optimizer())
+    step = make_train_step(tcfg, cfg.effective_dim_z)
+    gen = torch.Generator(device=device).manual_seed(4)
+    res, mb = cfg.resolution, TRAIN_MB
+    batch = dict(x=torch.rand((1, mb, 3, res, res), generator=gen, device=device) * 2 - 1,
+                 feats=torch.randn((1, mb, cfg.instance_sz), generator=gen, device=device),
+                 gen_feats=torch.randn((2, mb, cfg.instance_sz), generator=gen, device=device))
+    g_sn, d_sn = (next(m for m in net.modules() if isinstance(m, SelfAttention)).theta
+                  for net in (g, d))
+    bn = g.blocks[0][0].bn1
+    watch = dict(g_u0=g_sn.u0, d_u0=d_sn.u0, g_bn_mean=bn.stored_mean,
+                 g_weight=g.blocks[0][0].conv1.weight, d_weight=d.blocks[1][0].conv1.weight,
+                 ema_weight=state.g_ema.blocks[0][0].conv1.weight)
+    before = {k: v.detach().clone() for k, v in watch.items()}
+    torch.cuda.synchronize()
+    log(f"train path: {res}^2 G_ch {cfg.G_ch} D_ch {cfg.D_ch} G and D built in "
+        f"{time.perf_counter() - t0:.1f} s; microbatch {mb}, bf16 compute, f32 weights")
+
+    sagan_attention_fwd.launches = sagan_attention_bwd.launches = 0
+    metrics_all = []
+    times = []
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        if i > 0:
+            times.append(time.perf_counter() - t1)
+        metrics_all.append({k: v.item() for k, v in metrics.items()})
+    launches = dict(fwd=sagan_attention_fwd.launches, bwd=sagan_attention_bwd.launches)
+    n_steps = 1 + TRAIN_STEPS
+    for m in metrics_all:
+        log("step: " + "  ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    if not all(math.isfinite(v) for m in metrics_all for v in m.values()):
+        raise AssertionError("a loss or a non-finite count is not finite")
+    if launches != dict(fwd=4 * n_steps, bwd=3 * n_steps):
+        raise AssertionError(f"attention launches {launches} over {n_steps} steps, "
+                             "expected 4 and 3 per step")
+    unchanged = [k for k, v in watch.items() if torch.equal(v, before[k])]
+    if unchanged:
+        raise AssertionError(f"the train step left {unchanged} unchanged")
+    med = statistics.median(times)
+    flops = train_flops_per_step(cfg, mb)
+    log(f"train: attention launches over {n_steps} steps: B1 {launches['fwd']}, "
+        f"B2 {launches['bwd']} (4 and 3 per step); params, SN u0 of a G and a D layer, "
+        f"a BN stored_mean and the EMA weights all changed")
+    log(f"train step {res}^2 ch{cfg.G_ch} mb {mb} bf16: {1e3 * med:.2f} ms/step (median of "
+        f"{len(times)}; passes ms {', '.join(f'{1e3 * t:.2f}' for t in times)}), "
+        f"{mb / med:.2f} img/s (D-real images per step over step time); "
+        f"{flops / 1e12:.2f} TFLOP per step from the shapes, {flops / med / 1e12:.1f} TFLOP/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        phase_profile(f"one train step at microbatch {mb}",
+                      lambda: step(state, batch, gen))
+    return launches
+
+
+def phase_train_parity(device) -> None:
+    """One train step from the same weights, batch and z on the card and on
+    the CPU, f32 (TF32 off since phase 1): losses, raw gradients, SN and BN
+    state."""
+    tcfg = TrainConfig(ema_start=0, adam_eps=1e-3)
+    cfg, g_cpu, d_cpu = build_gan(PARITY_MODEL, torch.float32, "cpu", seed=5)
+    nets = {}
+    for label, dev in (("cpu", "cpu"), ("card", device)):
+        g = skip_init(Generator, cfg, device=dev)
+        d = skip_init(Discriminator, cfg, device=dev)
+        g.load_state_dict(g_cpu.state_dict())
+        d.load_state_dict(d_cpu.state_dict())
+        nets[label] = (g, d)
+    gen = torch.Generator().manual_seed(6)
+    res, mb = cfg.resolution, PARITY_MB
+    batch = dict(x=torch.rand((1, mb, 3, res, res), generator=gen) * 2 - 1,
+                 feats=torch.randn((1, mb, cfg.instance_sz), generator=gen),
+                 gen_feats=torch.randn((2, mb, cfg.instance_sz), generator=gen))
+    zs = [torch.randn((mb, cfg.effective_dim_z), generator=gen) for _ in range(2)]
+    out = {}
+    for label, (g, d) in nets.items():
+        state = GANTrainState.create(g, d, tcfg.g_optimizer(), tcfg.d_optimizer())
+        before = sagan_attention_bwd.launches
+        dev = g.linear.weight.device
+        _, m = make_train_step(tcfg, cfg.effective_dim_z, debug_grads=True)(
+            state, {k: v.to(dev) for k, v in batch.items()}, zs=[z.to(dev) for z in zs])
+        if label == "card" and sagan_attention_bwd.launches == before:
+            raise AssertionError("the card's step did not launch the attention backward")
+        out[label] = (m, g, d)
+    (m_cpu, g_c, d_c), (m_gpu, g_g, d_g) = out["cpu"], out["card"]
+    worst = {}
+    for k in ("D_loss_real", "D_loss_fake", "G_loss"):
+        a, b = m_gpu[k].item(), m_cpu[k].item()
+        worst[k] = abs(a - b) / max(abs(b), 1e-6)
+        if not worst[k] <= 1e-4:
+            raise AssertionError(f"train parity {k}: card {a} CPU {b}")
+    for which in ("d_grads", "g_grads"):
+        top = max(v.abs().max().item() for v in m_cpu[which].values())
+        rel = 0.0
+        for k, r in m_cpu[which].items():
+            err = (m_gpu[which][k].cpu() - r).abs().max().item()
+            rmax = r.abs().max().item()
+            if not err <= PARITY_GRAD_REL * rmax + PARITY_GRAD_FLOOR * top:
+                raise AssertionError(f"train parity {which} {k}: max|Δ| {err} (max|ref| {rmax})")
+            rel = max(rel, err / max(rmax, PARITY_GRAD_FLOOR * top / PARITY_GRAD_REL))
+        worst[which] = rel
+    rel = 0.0
+    n_state = 0
+    for net_g, net_c in ((g_g, g_c), (d_g, d_c)):
+        sd_c = net_c.state_dict()
+        for k, v in net_g.state_dict().items():
+            if k.endswith((".u0", ".sv0", ".stored_mean", ".stored_var")):
+                err = (v.cpu() - sd_c[k]).abs().max().item()
+                rmax = sd_c[k].abs().max().item()
+                if not err <= PARITY_STATE_REL * rmax:
+                    raise AssertionError(f"train parity state {k}: max|Δ| {err}")
+                rel = max(rel, err / rmax)
+                n_state += 1
+    worst["state"] = rel
+    log(f"train-step parity ({res}^2 ch{cfg.G_ch} attention at 32, mb {mb}, f32, card "
+        f"against CPU): worst relative |Δ|: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" ({n_state} SN/BN buffers; bars: losses 1e-4, grads {PARITY_GRAD_REL:g} of the "
+        f"tensor's max + {PARITY_GRAD_FLOOR:g} of the network's, state {PARITY_STATE_REL:g})")
+
+
 def main(argv) -> int:
     card = phase_env()
     device = torch.device("cuda", 0)
     phase_build()
     max_err = phase_kernels()
     timings = phase_timings()
+    bwd_timings = phase_bwd_timings()
     main_run = phase_main_path(device)
     if "--profile" in argv:
-        phase_profile(main_run)
+        z, feats = main_run["requests"][0]
+        phase_profile(f"one sampler batch of {SAMPLER_BATCH}",
+                      lambda: main_run["sampler"](z, feats=feats, device_output=True))
     phase_parity(main_run, device)
+    del main_run["g"], main_run["sampler"], main_run["requests"]
+    torch.cuda.empty_cache()
+    train = phase_train(device, "--profile" in argv)
+    phase_train_parity(device)
+    b2 = bwd_timings["G"]
     kernels = [dict(
         name="sagan_attention_fwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_fwd.cu",
-        replaces="ic_gan_tpu/ops/pallas/attention.py:64",
-        launches=main_run["launches"], max_abs_err=max_err,
+        replaces="ic_gan_tpu/ops/pallas/attention.py:56",
+        launches=main_run["launches"] + train["fwd"],
+        launches_by_path=dict(sampler=main_run["launches"], train=train["fwd"]),
+        max_abs_err=max_err["fwd"],
         ms=timings["kernel_ms"], plain_ms=timings["plain_ms"],
         bound_ms=timings["bound_ms"], bound_by=timings["bound_by"],
         library_ms=timings["library_ms"],
+        train_shapes=timings["train_shapes"],
+    ), dict(
+        name="sagan_attention_bwd", route="cuda",
+        source="ic_gan_tpu_torch/csrc/sagan_attention_bwd.cu",
+        replaces="ic_gan_tpu/ops/pallas/attention.py:136",
+        launches=train["bwd"],
+        launches_by_path=dict(sampler=0, train=train["bwd"]),
+        max_abs_err=max_err["bwd"],
+        ms=b2["kernel_ms"], plain_ms=b2["plain_ms"],
+        bound_ms=b2["bound_ms"], bound_by=b2["bound_by"],
+        library_ms=b2["library_ms"],
+        train_shapes=bwd_timings,
     )]
     print(card)
     print(json.dumps({"kernels": kernels}))

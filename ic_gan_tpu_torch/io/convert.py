@@ -3,9 +3,11 @@
 The JAX package keeps Flax variables (``params``, ``sn``, ``batch_stats``)
 in NHWC layouts: linear kernels (in, out), conv kernels HWIO.  The port's
 modules use the upstream torch names and layouts: (out, in) and OIHW.  This
-is the port's own copy of the generator key map of
-``ic_gan_tpu/io/torch_import.py`` (there it maps torch → JAX; here the
+is the port's own copy of the generator and discriminator key maps of
+``ic_gan_tpu/io/torch_import.py`` (there they map torch → JAX; here the
 transforms run JAX → torch), extended by the ``accum_counter`` buffers.
+``tree_to_torch`` applies a map to any tree shaped like one collection
+(raw gradients, EMA parameters).
 """
 
 from __future__ import annotations
@@ -15,17 +17,17 @@ from typing import Any, Callable, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from ic_gan_tpu_torch.models.biggan import BigGANConfig, g_arch
+from ic_gan_tpu_torch.models.biggan import BigGANConfig, d_arch, g_arch
 
 Path = Tuple[str, ...]
 
 
-def _t_linear(w):  # (in, out) → (out, in)
-    return np.ascontiguousarray(np.asarray(w).T)
+def _t_linear(w):  # (in, out) → (out, in), a writable copy
+    return np.array(np.asarray(w).T, order="C")
 
 
-def _t_conv(w):  # HWIO → OIHW
-    return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+def _t_conv(w):  # HWIO → OIHW, a writable copy
+    return np.array(np.transpose(np.asarray(w), (3, 2, 0, 1)), order="C")
 
 
 def _ident(w):
@@ -97,6 +99,28 @@ def generator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]:
     return m
 
 
+def discriminator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]:
+    """JAX variable path → (torch key, transform) for the discriminator."""
+    if cfg.class_cond:
+        raise NotImplementedError(
+            "the class-conditional discriminator is not ported yet (ROADMAP.md A.3)")
+    arch = d_arch(cfg.resolution, cfg.D_ch, cfg.D_attn)
+    m: Dict[Path, Tuple[str, Callable]] = {}
+    for i in range(len(arch["out_channels"])):
+        p = ("block_%d" % i,)
+        t = f"blocks.{i}.0"
+        _conv(m, p + ("conv1",), f"{t}.conv1")
+        _conv(m, p + ("conv2",), f"{t}.conv2")
+        if arch["in_channels"][i] != arch["out_channels"][i] or arch["downsample"][i]:
+            _conv(m, p + ("conv_sc",), f"{t}.conv_sc")
+        if arch["attention"][i]:
+            _attention(m, ("attn_%d" % i,), f"blocks.{i}.1")
+    _dense(m, ("linear",), "linear")
+    if cfg.instance_cond:
+        _dense(m, ("linear_feat",), "linear_feat")
+    return m
+
+
 def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, Any]:
     flat = {}
     for k, v in tree.items():
@@ -107,19 +131,40 @@ def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, Any]:
     return flat
 
 
-def generator_state_dict_from_jax(variables: Mapping, cfg: BigGANConfig
-                                  ) -> Dict[str, torch.Tensor]:
-    """The port's generator ``state_dict`` (CPU tensors) from a float32 JAX
-    variable tree with numpy (or JAX) leaves.  A folded tree (no ``sn``
-    collection) gives a folded state dict, without ``u0``/``sv0``: load it
-    into a generator that ``io.deploy.fold_spectral_norm`` has folded."""
+def _state_dict_from_jax(variables: Mapping, key_map) -> Dict[str, torch.Tensor]:
     flat = _flatten(variables)
     folded = "sn" not in variables
     out = {}
-    for path, (key, transform) in generator_key_map(cfg).items():
+    for path, (key, transform) in key_map.items():
         if folded and path[0] == "sn":
             continue
         if path not in flat:
             raise KeyError(f"JAX variables are missing {'/'.join(path)}")
         out[key] = torch.from_numpy(transform(flat[path]))
     return out
+
+
+def generator_state_dict_from_jax(variables: Mapping, cfg: BigGANConfig
+                                  ) -> Dict[str, torch.Tensor]:
+    """The port's generator ``state_dict`` (CPU tensors) from a float32 JAX
+    variable tree with numpy (or JAX) leaves.  A folded tree (no ``sn``
+    collection) gives a folded state dict, without ``u0``/``sv0``: load it
+    into a generator that ``io.deploy.fold_spectral_norm`` has folded."""
+    return _state_dict_from_jax(variables, generator_key_map(cfg))
+
+
+def discriminator_state_dict_from_jax(variables: Mapping, cfg: BigGANConfig
+                                      ) -> Dict[str, torch.Tensor]:
+    """The port's discriminator ``state_dict`` (CPU tensors) from a float32
+    JAX variable tree (``params`` and ``sn``)."""
+    return _state_dict_from_jax(variables, discriminator_key_map(cfg))
+
+
+def tree_to_torch(tree: Mapping, key_map) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the ``params`` collection of G or D (raw gradients,
+    EMA parameters) → {torch name: CPU tensor}, through the same transforms
+    as the weights.  ``key_map`` is ``generator_key_map(cfg)`` or
+    ``discriminator_key_map(cfg)``; every ``params`` path in it must be
+    present."""
+    return _state_dict_from_jax(
+        {"params": tree}, {p: v for p, v in key_map.items() if p[0] == "params"})

@@ -1,10 +1,12 @@
-"""IC-GAN BigGAN generator in PyTorch (NCHW), eval path.
+"""IC-GAN BigGAN generator and discriminator in PyTorch (NCHW).
 
-Port of ``ic_gan_tpu/models/biggan.py`` (``g_arch``, ``BigGANConfig``,
-``Generator``).  Module names follow the upstream torch tree, so
-``state_dict()`` keys are the reference's: ``shared_feat``, ``linear``,
-``blocks.{i}.0`` (GBlock), ``blocks.{i}.1`` (attention), ``output_layer.0``
-(batch norm) and ``output_layer.2`` (conv).
+Port of ``ic_gan_tpu/models/biggan.py`` (``g_arch``, ``d_arch``,
+``BigGANConfig``, ``Generator``, ``Discriminator``).  Module names follow the
+upstream torch tree, so ``state_dict()`` keys are the reference's.  G:
+``shared_feat``, ``linear``, ``blocks.{i}.0`` (GBlock), ``blocks.{i}.1``
+(attention), ``output_layer.0`` (batch norm) and ``output_layer.2`` (conv).
+D: ``blocks.{i}.0`` (DBlock), ``blocks.{i}.1`` (attention), ``linear`` and
+``linear_feat``.  ``module.train()`` is the JAX package's ``train=True``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ic_gan_tpu_torch import resolve_device
 from ic_gan_tpu_torch.models.layers import (
     BN_EPS,
     SN_EPS,
+    DBlock,
     GBlock,
     ScaledBatchNorm,
     SelfAttention,
@@ -54,6 +57,33 @@ def g_arch(resolution: int, ch: int, attention: str = "64") -> Dict[str, Any]:
     }
 
 
+def d_arch(resolution: int, ch: int, attention: str = "64") -> Dict[str, Any]:
+    """Discriminator channel table (ref ``BigGAN.py:390-432``)."""
+    tables = {
+        256: ([1, 2, 4, 8, 8, 16], [1, 2, 4, 8, 8, 16, 16], 6, [128, 64, 32, 16, 8, 4, 4]),
+        128: ([1, 2, 4, 8, 16], [1, 2, 4, 8, 16, 16], 5, [64, 32, 16, 8, 4, 4]),
+        64: ([1, 2, 4, 8], [1, 2, 4, 8, 16], 4, [32, 16, 8, 4, 4]),
+    }
+    if resolution == 32:
+        cin = [3] + [4 * ch] * 3
+        cout = [4 * ch] * 4
+        down = [True, True, False, False]
+        res = [16, 16, 16, 16]
+    else:
+        mults_in, mults_out, n_down, res = tables[resolution]
+        cin = [3] + [ch * m for m in mults_in]
+        cout = [ch * m for m in mults_out]
+        down = [True] * n_down + [False] * (len(cout) - n_down)
+    attn = set(_attn_set(attention))
+    return {
+        "in_channels": cin,
+        "out_channels": cout,
+        "downsample": down,
+        "resolution": res,
+        "attention": [r in attn for r in res],
+    }
+
+
 @dataclasses.dataclass(frozen=True)
 class BigGANConfig:
     """Generator hyperparameters; names track the JAX config and the
@@ -61,16 +91,20 @@ class BigGANConfig:
 
     resolution: int = 64
     G_ch: int = 64
+    D_ch: int = 64
     dim_z: int = 120
     bottom_width: int = 4
     G_attn: str = "64"
+    D_attn: str = "64"
     hier: bool = True
     class_cond: bool = False
     instance_cond: bool = True
     G_shared_feat: bool = True
     shared_dim_feat: int = 512
     instance_sz: int = 2048
+    D_wide: bool = True
     num_G_SVs: int = 1
+    num_D_SVs: int = 1
     num_SV_itrs: int = 1
     SN_eps: float = SN_EPS
     BN_eps: float = BN_EPS
@@ -80,6 +114,10 @@ class BigGANConfig:
     @property
     def g_arch(self):
         return g_arch(self.resolution, self.G_ch, self.G_attn)
+
+    @property
+    def d_arch(self):
+        return d_arch(self.resolution, self.D_ch, self.D_attn)
 
     @property
     def num_slots(self) -> int:
@@ -107,7 +145,8 @@ class Generator(nn.Module):
     in [-1, 1].  ``standing=True`` accumulates standing batch-norm statistics.
     Runs on ``device`` (default CUDA); weights are drawn from ``generator``
     (a ``torch.Generator`` on that device) or the default one.  Built in eval
-    mode; training is not ported yet.  Build with
+    mode; in training mode batch norm takes the batch's moments and every
+    spectrally normalized layer advances its state.  Build with
     ``torch.nn.utils.skip_init(Generator, cfg, device=...)`` to skip the
     initializers before ``load_state_dict``.
     """
@@ -152,8 +191,6 @@ class Generator(nn.Module):
         self.eval()
 
     def forward(self, z, label=None, feats=None, standing: bool = False):
-        if self.training:
-            raise NotImplementedError("training mode is not ported yet (ROADMAP.md A.8)")
         if label is not None:
             raise ValueError("this generator is not class-conditional")
         cfg = self.cfg
@@ -181,3 +218,56 @@ class Generator(nn.Module):
         bn, _, conv = self.output_layer
         h = conv(F.relu(bn(h, standing)))
         return torch.tanh(h.float())
+
+
+class Discriminator(nn.Module):
+    """IC-GAN BigGAN discriminator with the instance projection head.
+
+    ``forward(x, label=None, feats=None)``: images x (N, 3, res, res), feats
+    (N, instance_sz) → scores (N, 1), float32.  The compute type is
+    ``cfg.dtype``; weights and state are float32.  Runs on ``device``
+    (default CUDA), weights drawn from ``generator``.  Built in eval mode.
+    """
+
+    def __init__(self, cfg: BigGANConfig, device=None, generator=None):
+        super().__init__()
+        if cfg.class_cond:
+            raise NotImplementedError(
+                "the class-conditional discriminator heads need SNEmbed, which is "
+                "not ported yet (ROADMAP.md A.3)")
+        device = resolve_device(device)
+        self.cfg = cfg
+        arch = cfg.d_arch
+        sn = dict(num_svs=cfg.num_D_SVs, num_itrs=cfg.num_SV_itrs, dtype=cfg.dtype,
+                  device=device, generator=generator)
+        blocks = []
+        for i, (cin, cout) in enumerate(zip(arch["in_channels"], arch["out_channels"])):
+            stage = [DBlock(cin, cout, wide=cfg.D_wide, preactivation=i > 0,
+                            downsample=arch["downsample"][i], sn_eps=cfg.SN_eps, **sn)]
+            if arch["attention"][i]:
+                stage.append(SelfAttention(cout, sn_eps=cfg.SN_eps, **sn))
+            blocks.append(nn.ModuleList(stage))
+        self.blocks = nn.ModuleList(blocks)
+        top = arch["out_channels"][-1]
+        self.linear = SNDense(top, 1, eps=cfg.SN_eps, **sn)
+        if cfg.instance_cond:
+            self.linear_feat = SNDense(cfg.instance_sz, top, eps=cfg.SN_eps, **sn)
+        self.eval()
+
+    def forward(self, x, label=None, feats=None):
+        if label is not None:
+            raise ValueError("this discriminator is not class-conditional")
+        cfg = self.cfg
+        h = x.to(cfg.dtype)
+        for stage in self.blocks:
+            for m in stage:
+                h = m(h)
+        # Global sum pool over space (ref BigGAN.py:625).
+        h = torch.sum(F.relu(h), dim=(2, 3))
+        out = self.linear(h)
+        if cfg.instance_cond:
+            if feats is None:
+                raise ValueError("an instance-conditioned discriminator needs feats")
+            f = self.linear_feat(feats.to(cfg.dtype))
+            out = out + torch.sum(f * h, dim=1, keepdim=True)
+        return out.float()

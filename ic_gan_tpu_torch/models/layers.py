@@ -1,6 +1,6 @@
-"""BigGAN generator layers in PyTorch (NCHW), eval path.
+"""BigGAN layers in PyTorch (NCHW): the generator's and the discriminator's.
 
-Port of the generator's eval path in ``ic_gan_tpu/models/layers.py``.  Module,
+Port of ``ic_gan_tpu/models/layers.py`` (``norm_style="bn"``).  Module,
 parameter and buffer names follow the upstream torch tree
 (``BigGAN_PyTorch/layers.py``), so ``state_dict()`` keys are the reference's:
 ``weight``/``bias``, spectral-norm state ``u0``/``sv0``, batch-norm
@@ -11,8 +11,12 @@ Each layer computes in its ``dtype`` (the model's compute type), casting its
 input and weights to it, as the JAX layers do.  Folding spectral norm
 (``io/deploy.fold_spectral_norm``) divides each weight by its σ once and
 drops its ``u0``/``sv0`` buffers; a folded layer skips the power iteration.
-Training mode is not ported yet: batch norm here runs in eval and standing
-modes only.
+
+``module.training`` plays the part of the JAX package's ``train=True``: a
+spectrally normalized layer then advances ``u0``/``sv0`` at each forward, and
+batch norm normalizes with the batch's moments while it updates its running
+statistics.  State is updated in place, under ``no_grad``; σ itself stays on
+the autograd tape.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch.nn.functional as F
 
 from ic_gan_tpu_torch.ops.attention import sagan_attention
 from ic_gan_tpu_torch.ops.resample import (
+    avg_pool_2x,
+    conv3x3_avg_pool_down,
     conv3x3_nearest_up,
     max_pool_2x,
     upsample_nearest_2x,
@@ -34,6 +40,7 @@ from ic_gan_tpu_torch.ops.spectral_norm import spectral_normalize
 # Reference argparse defaults (BigGAN_PyTorch/utils.py).
 SN_EPS = 1e-6
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def _ortho(shape, device, generator) -> nn.Parameter:
@@ -45,7 +52,8 @@ def _ortho(shape, device, generator) -> nn.Parameter:
 
 class _SpectralNormed(nn.Module):
     """A layer whose ``weight`` is divided by its top singular value, with the
-    power-iteration state in buffers ``u0`` (num_svs, out) and ``sv0``."""
+    power-iteration state in buffers ``u0`` (num_svs, out) and ``sv0``;
+    in training mode each forward advances that state."""
 
     def _init_sn(self, out_features, num_svs, num_itrs, eps, device, generator):
         self.num_itrs = num_itrs
@@ -60,11 +68,21 @@ class _SpectralNormed(nn.Module):
 
     def w_bar(self) -> torch.Tensor:
         """The normalized weight in the weight's dtype; σ is found in float32
-        (the state ``u0`` stays float32 when the weights are cast)."""
+        or wider (the state ``u0`` stays float32 when the weights are cast to
+        bf16).  In training mode the advanced state is copied into
+        ``u0``/``sv0``: the σ on the tape holds the fresh tensor
+        ``spectral_normalize`` returned, never the buffer, so a later forward
+        before the backward is safe."""
         if self.folded:
             return self.weight
-        w_bar = spectral_normalize(self.weight.float(), self.u0, update=False,
-                                   num_itrs=self.num_itrs, eps=self.eps)[0]
+        w = self.weight.to(torch.promote_types(self.weight.dtype, torch.float32))
+        w_bar, new_u, svs = spectral_normalize(
+            w, self.u0, update=self.training,
+            num_itrs=self.num_itrs, eps=self.eps)
+        if self.training and new_u is not self.u0:
+            with torch.no_grad():
+                self.u0.copy_(new_u)
+                self.sv0.copy_(svs)
         return w_bar.to(self.weight.dtype)
 
     @torch.no_grad()
@@ -95,15 +113,18 @@ class SNDense(_SpectralNormed):
 class SNConv(_SpectralNormed):
     """k×k conv (stride 1, SAME padding) with spectral normalization (ref
     ``SNConv2d``).  ``up2x`` applies a 3×3 kernel as if the input were
-    nearest-2×-upsampled, without the upsampled temp (``conv3x3_nearest_up``)."""
+    nearest-2×-upsampled, without the upsampled temp (``conv3x3_nearest_up``);
+    ``down2x`` as if its output were 2×2-average-pooled, as one stride-2 conv
+    (``conv3x3_avg_pool_down``)."""
 
     def __init__(self, in_features: int, out_features: int, kernel_size: int = 3,
-                 bias: bool = True, up2x: bool = False, num_svs: int = 1,
-                 num_itrs: int = 1, eps: float = SN_EPS,
+                 bias: bool = True, up2x: bool = False, down2x: bool = False,
+                 num_svs: int = 1, num_itrs: int = 1, eps: float = SN_EPS,
                  dtype: torch.dtype = torch.float32, device=None, generator=None):
         super().__init__()
         self.dtype = dtype
         self.up2x = up2x
+        self.down2x = down2x
         self.padding = kernel_size // 2
         self.weight = _ortho((out_features, in_features, kernel_size, kernel_size),
                              device, generator)
@@ -116,18 +137,24 @@ class SNConv(_SpectralNormed):
         b = None if self.bias is None else self.bias.to(self.dtype)
         if self.up2x:
             return conv3x3_nearest_up(x, w, b)
+        if self.down2x:
+            return conv3x3_avg_pool_down(x, w, b)
         return F.conv2d(x, w, b, padding=self.padding)
 
 
 class CrossReplicaBatchNorm(nn.Module):
-    """Parameter-free batch norm over stored statistics (eval), or over the
-    batch's own moments while accumulating them (``standing``).
+    """Parameter-free batch norm with torch ``F.batch_norm`` semantics.
 
-    Standing mode adds the batch mean and biased variance to ``stored_mean``
-    and ``stored_var`` and counts in ``accum_counter``; eval then normalizes
-    with the averages.  With a zero counter, eval uses the stored statistics
-    as they are.  Statistics stay float32; a low-precision eval normalizes in
-    the compute type (``layers.py:346-352`` of the JAX package).
+    Training mode normalizes with the batch's mean and biased variance, taken
+    in float32 as E[x²]−E[x]², and moves ``stored_mean``/``stored_var``
+    toward the mean and the unbiased variance with momentum 0.1.  Standing
+    mode adds the batch mean and biased variance to ``stored_mean`` and
+    ``stored_var`` and counts in ``accum_counter``; eval then normalizes with
+    the averages.  With a zero counter, eval uses the stored statistics as
+    they are.  Statistics stay float32; a low-precision eval normalizes in the
+    compute type (``layers.py:346-352`` of the JAX package).  The moments are
+    this process's batch only: cross-replica moments come with data
+    parallelism (ROADMAP.md A.9).
     """
 
     def __init__(self, features: int, eps: float = BN_EPS, device=None):
@@ -138,13 +165,22 @@ class CrossReplicaBatchNorm(nn.Module):
         self.register_buffer("accum_counter", torch.zeros(1, device=device))
 
     def forward(self, x, standing: bool = False):
-        if standing:
+        batch_moments = standing or self.training
+        if batch_moments:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(dim=(0, 2, 3))
             v = xf.square().mean(dim=(0, 2, 3)) - mean.square()
-            self.stored_mean += mean
-            self.stored_var += v
-            self.accum_counter += 1.0
+            with torch.no_grad():
+                if standing:
+                    self.stored_mean += mean
+                    self.stored_var += v
+                    self.accum_counter += 1.0
+                else:
+                    n = x.shape[0] * x.shape[2] * x.shape[3]
+                    mom = BN_MOMENTUM
+                    self.stored_mean.copy_((1 - mom) * self.stored_mean + mom * mean)
+                    self.stored_var.copy_((1 - mom) * self.stored_var
+                                          + mom * (v * (n / max(n - 1, 1))))
         else:
             cnt = self.accum_counter[0]
             use_standing = cnt > 0
@@ -152,7 +188,7 @@ class CrossReplicaBatchNorm(nn.Module):
             mean = torch.where(use_standing, self.stored_mean / cnt, self.stored_mean)
             v = torch.where(use_standing, self.stored_var / cnt, self.stored_var)
         inv = torch.rsqrt(v + self.eps)
-        if standing or x.dtype == torch.float32:
+        if batch_moments or x.dtype == torch.float32:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             return ((xf - mean[:, None, None]) * inv[:, None, None]).to(x.dtype)
         return (x - mean.to(x.dtype)[:, None, None]) * inv.to(x.dtype)[:, None, None]
@@ -275,3 +311,34 @@ class GBlock(nn.Module):
         if self.upsample:
             x = upsample_nearest_2x(x)
         return h + x
+
+
+class DBlock(nn.Module):
+    """Discriminator residual block (ref ``DBlock``): (ReLU→)conv3×3→ReLU→
+    conv3×3, the 2×2 average pool fused into conv2 (``down2x``), plus a
+    shortcut.  The 1×1 shortcut conv commutes with the pool, so the shortcut
+    pools first in both of the reference's orders (exact, 4× fewer FLOPs)."""
+
+    def __init__(self, in_features: int, out_features: int, wide: bool = True,
+                 preactivation: bool = True, downsample: bool = False,
+                 sn_eps: float = SN_EPS, num_svs: int = 1, num_itrs: int = 1,
+                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+        super().__init__()
+        self.preactivation = preactivation
+        self.downsample = downsample
+        hidden = out_features if wide else in_features
+        sn = dict(eps=sn_eps, num_svs=num_svs, num_itrs=num_itrs, dtype=dtype,
+                  device=device, generator=generator)
+        self.conv1 = SNConv(in_features, hidden, 3, **sn)
+        self.conv2 = SNConv(hidden, out_features, 3, down2x=downsample, **sn)
+        self.conv_sc = None
+        if in_features != out_features or downsample:
+            self.conv_sc = SNConv(in_features, out_features, 1, **sn)
+
+    def forward(self, x):
+        h = F.relu(x) if self.preactivation else x
+        h = self.conv2(F.relu(self.conv1(h)))
+        sc = avg_pool_2x(x) if self.downsample else x
+        if self.conv_sc is not None:
+            sc = self.conv_sc(sc)
+        return h + sc

@@ -1,6 +1,6 @@
 """BigGAN resampling in NCHW: nearest 2× upsample, the polyphase
-upsample-conv and 2×2 max pool.  Port of the BigGAN subset of
-``ic_gan_tpu/ops/resample.py``."""
+upsample-conv, 2×2 max and average pools and the pooled downsample-conv.
+Port of the BigGAN subset of ``ic_gan_tpu/ops/resample.py``."""
 
 from __future__ import annotations
 
@@ -60,3 +60,27 @@ def _interleave_phases(phases, x_shape):
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """2×2 max pool, stride 2 (SA-GAN attention φ/g path)."""
     return F.max_pool2d(x, 2)
+
+
+# Tap r of the 4×4 box-convolved kernel sums rows r and r−1 of the 3×3 one.
+_BOX_TAPS = ((1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (0.0, 1.0, 1.0), (0.0, 0.0, 1.0))
+
+
+def conv3x3_avg_pool_down(x: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor = None) -> torch.Tensor:
+    """``avg_pool_2x(conv3x3(x, w, padding=1)) + bias`` as one stride-2 conv
+    with the 4×4 kernel ¼·w⊛1₂ₓ₂ and padding (1, 1): the BigGAN DBlock tail
+    without the full-resolution conv temp, exact up to float associativity.
+
+    x: (N, Cin, H, W); w: (Cout, Cin, 3, 3) → (N, Cout, H/2, W/2).
+    """
+    if w.shape[2:] != (3, 3):
+        raise ValueError(f"conv3x3_avg_pool_down needs a 3x3 kernel, got {tuple(w.shape)}")
+    b = torch.tensor(_BOX_TAPS, dtype=w.dtype, device=w.device)  # (4, 3)
+    k4 = 0.25 * torch.einsum("ra,oiab,cb->oirc", b, w, b)
+    return F.conv2d(x, k4, bias, stride=2, padding=1)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2×2 average pool, stride 2 (BigGAN D: ``nn.AvgPool2d(2)``)."""
+    return F.avg_pool2d(x, 2)

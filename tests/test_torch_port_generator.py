@@ -267,15 +267,29 @@ def test_unported_norm_style_raises(style):
         tbiggan.Generator(port_cfg(norm_style=style), device="cpu")
 
 
-def test_training_mode_raises(jax_model):
-    g = _port(jax_model["folded"], folded=True).train()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        _run(g, jax_model)
+def test_training_mode_updates_state_and_matches_jax(jax_model):
+    """Train mode: batch-moment normalization, and every layer advances its
+    SN state and moves its BN running statistics, as JAX's train=True."""
+    variables = jax_model["variables"]
+    ref, mut = jax_model["g"].apply(variables, jax_model["z"], None, jax_model["feats"],
+                                    train=True, mutable=["batch_stats", "sn"])
+    new = generator_state_dict_from_jax({"params": variables["params"], **mut}, port_cfg())
+    g = _port(variables).train()
+    before = {k: v.clone() for k, v in g.state_dict().items()}
+    out = _run(g, jax_model)
+    np.testing.assert_allclose(_nchw_to_nhwc(out), np.asarray(ref), atol=1e-4)
+    keys = [k for k in new if k.endswith((".u0", ".sv0", ".stored_mean", ".stored_var"))]
+    assert len(keys) > 40
+    for k in keys:
+        got = g.state_dict()[k]
+        assert not torch.equal(got, before[k]) or k.endswith(".sv0"), k
+        np.testing.assert_allclose(got.numpy(), new[k].numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
 
 
 # --- (m) the port imports no JAX ---------------------------------------------
 
-FORBIDDEN = {"jax", "flax", "ic_gan_tpu", "__graft_entry__"}
+FORBIDDEN = {"jax", "flax", "optax", "ic_gan_tpu", "__graft_entry__"}
 
 
 def _imported_roots(path):
@@ -292,7 +306,7 @@ def test_port_imports_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ic_gan_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 10 and os.path.exists(files[0])
+    assert len(files) >= 14 and os.path.exists(files[0])
     bad = {(os.path.relpath(f, ROOT), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad

@@ -129,9 +129,9 @@ def test_attention_plain_matches_jax(dtype, oracle):
 
 def test_attention_wrapper_takes_plain_path_on_cpu():
     targs = [torch.from_numpy(a) for a in _attn_inputs((2, 100, 25, 6, 10))]
-    before = tattn.sagan_attention.launches
+    before = tattn.sagan_attention_fwd.launches
     got = tattn.sagan_attention(*targs)
-    assert tattn.sagan_attention.launches == before
+    assert tattn.sagan_attention_fwd.launches == before
     torch.testing.assert_close(got, tattn.sagan_attention_ref(*targs), rtol=0, atol=0)
 
 
