@@ -6,10 +6,11 @@ counterpart is easy to find; inside, the code is plain PyTorch: ``nn.Module``s
 over NCHW tensors, OIHW conv and (out, in) linear weights, ``torch.Generator``s
 for randomness, and an explicit device everywhere.
 
-The SA-GAN attention forward, a Pallas kernel in the JAX package, is a CUDA
-C++ kernel here (``csrc/sagan_attention_fwd.cu``), built with ``nvcc`` at its
-first use on the card (``ops/_build.py``).  On CPU tensors every kernel
-wrapper runs its plain PyTorch version instead.
+The JAX package's four Pallas kernels are CUDA C++ kernels here
+(``csrc/``): the SA-GAN attention forward and backward, the ADA warp's row
+shift and the fused bias-activation, each built with ``nvcc`` at its first
+use on the card (``ops/_build.py``).  On CPU tensors every kernel wrapper
+runs its plain PyTorch version instead.
 
 This package imports neither ``jax`` nor ``ic_gan_tpu``.
 """

@@ -7,7 +7,8 @@ is the port's own copy of the generator and discriminator key maps of
 ``ic_gan_tpu/io/torch_import.py`` (there they map torch → JAX; here the
 transforms run JAX → torch), extended by the ``accum_counter`` buffers.
 ``tree_to_torch`` applies a map to any tree shaped like one collection
-(raw gradients, EMA parameters).
+(raw gradients, EMA parameters).  The StyleGAN2 trees map by rule, both ways
+(``stylegan2_state_dict_from_jax``, ``stylegan2_variables_from_state_dict``).
 """
 
 from __future__ import annotations
@@ -168,3 +169,63 @@ def tree_to_torch(tree: Mapping, key_map) -> Dict[str, torch.Tensor]:
     present."""
     return _state_dict_from_jax(
         {"params": tree}, {p: v for p, v in key_map.items() if p[0] == "params"})
+
+
+# --- StyleGAN2 -------------------------------------------------------------------
+#
+# The JAX StyleGAN2 tree already carries the upstream names (``mapping/fc0``,
+# ``synthesis/b4/conv1/affine``, ``b4/out`` …), so the map is by rule: the
+# torch key is the path below the collection, joined by dots, and the layout
+# follows the leaf.  Collections: ``params``; ``noise`` (``noise_const``);
+# ``batch_stats`` (``w_avg``).
+
+_SG2_BUFFERS = {"noise_const": "noise", "w_avg": "batch_stats"}
+
+
+def _sg2_to_torch(path: Path, value) -> np.ndarray:
+    v = np.asarray(value)
+    if path[-1] == "weight" and v.ndim == 4:
+        return _t_conv(v)
+    if path[-1] == "weight" and v.ndim == 2:
+        return _t_linear(v)
+    if path[-1] == "const":                       # (H, W, C) → (C, H, W)
+        return np.array(np.transpose(v, (2, 0, 1)), order="C")
+    return np.array(v)
+
+
+def _sg2_to_jax(key: str, value: np.ndarray) -> np.ndarray:
+    leaf = key.rsplit(".", 1)[-1]
+    if leaf == "weight" and value.ndim == 4:      # OIHW → HWIO
+        return np.array(np.transpose(value, (2, 3, 1, 0)), order="C")
+    if leaf == "weight" and value.ndim == 2:
+        return np.array(value.T, order="C")
+    if leaf == "const":
+        return np.array(np.transpose(value, (1, 2, 0)), order="C")
+    return np.array(value)
+
+
+def stylegan2_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's StyleGAN2 G or D ``state_dict`` (CPU tensors) from a JAX
+    variable tree with numpy (or JAX) leaves: conv kernels HWIO → OIHW, FC
+    kernels (in, out) → (out, in), ``const`` HWC → CHW; ``noise_const`` and
+    ``w_avg`` carry over.  A tree shaped like ``params`` alone (raw
+    gradients, EMA parameters) goes in as ``{"params": tree}``."""
+    out = {}
+    for path, v in _flatten(variables).items():
+        if path[0] not in ("params", "noise", "batch_stats"):
+            raise KeyError(f"unexpected StyleGAN2 collection {'/'.join(path)}")
+        out[".".join(path[1:])] = torch.from_numpy(_sg2_to_torch(path, v))
+    return out
+
+
+def stylegan2_variables_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse: a port ``state_dict`` → the JAX variable tree (numpy
+    leaves, nested dicts by collection)."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        node = tree.setdefault(_SG2_BUFFERS.get(parts[-1], "params"), {})
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = _sg2_to_jax(key, t.detach().cpu().numpy())
+    return tree

@@ -1,1 +1,1 @@
-"""Generator models of the port (the BigGAN eval path so far)."""
+"""Models of the port: the BigGAN and StyleGAN2 generators and discriminators."""

@@ -1,1 +1,2 @@
-"""Tensor ops of the port: spectral norm, BigGAN resampling, SA-GAN attention."""
+"""Tensor ops of the port: spectral norm, resampling, SA-GAN attention,
+fused bias-activation and the fractional row shift."""

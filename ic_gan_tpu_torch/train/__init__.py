@@ -1,1 +1,1 @@
-"""GAN training: losses, train state and the train step."""
+"""GAN training: losses, train states and the BigGAN and StyleGAN2 train steps."""

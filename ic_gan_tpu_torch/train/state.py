@@ -5,6 +5,7 @@ their buffers."""
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -65,3 +66,15 @@ def scrub_grads(params) -> torch.Tensor:
     for g in grads:
         g.nan_to_num_(nan=0.0, posinf=1e5, neginf=-1e5)
     return torch.as_tensor(count, dtype=torch.float32)
+
+
+@contextlib.contextmanager
+def frozen(module: nn.Module):
+    """Parameters of ``module`` need no gradient inside the block."""
+    flags = [p.requires_grad for p in module.parameters()]
+    module.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in zip(module.parameters(), flags):
+            p.requires_grad_(flag)

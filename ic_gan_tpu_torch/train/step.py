@@ -20,7 +20,6 @@ parameters are frozen in the G phase, so only G's gradients are formed.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional, Sequence
@@ -32,6 +31,7 @@ from ic_gan_tpu_torch.train import losses as losses_lib
 from ic_gan_tpu_torch.train.state import (
     GANTrainState,
     ema_update,
+    frozen,
     make_optimizer,
     scrub_grads,
 )
@@ -89,18 +89,6 @@ def ortho_grad_term(module: nn.Module, strength: float,
         wwt = wwt - torch.diag(torch.diag(wwt))
         terms[name] = strength * (2.0 * (wwt @ mat)).reshape(w.shape)
     return terms
-
-
-@contextlib.contextmanager
-def _frozen(module: nn.Module):
-    """Parameters of ``module`` need no gradient inside the block."""
-    flags = [p.requires_grad for p in module.parameters()]
-    module.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p, flag in zip(module.parameters(), flags):
-            p.requires_grad_(flag)
 
 
 def _finish_grads(module: nn.Module, ortho: float, blacklist=()):
@@ -198,7 +186,7 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
         # ---- G phase ----
         state.g_opt.zero_grad(set_to_none=True)
         g_loss = 0.0
-        with _frozen(d):
+        with frozen(d):
             for acc in range(n_acc_g):
                 gf = feats_of(batch, "gen_feats", nD + acc)
                 fake = g(zs[nD + acc], None, gf)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (B1–B4) against their plain PyTorch versions, on
+the card.
 
 Marked ``cuda``; without a CUDA device every test skips (the kernels have no
 CPU mode).  On a machine with a card, where the JAX package need not be
@@ -20,10 +21,18 @@ from ic_gan_tpu_torch.ops.attention import (
     sagan_attention_fwd,
     sagan_attention_ref,
 )
+from ic_gan_tpu_torch.data.ada import AugmentPipe
+from ic_gan_tpu_torch.models.stylegan2 import Discriminator as SG2Discriminator
+from ic_gan_tpu_torch.models.stylegan2 import Generator as SG2Generator
+from ic_gan_tpu_torch.models.stylegan2 import StyleGAN2Config
+from ic_gan_tpu_torch.ops.bias_act import activation_funcs, bias_act, bias_act_fwd, bias_act_ref
+from ic_gan_tpu_torch.ops.row_shift import row_shift, row_shift_fwd, row_shift_ref
 from ic_gan_tpu_torch.train.state import GANTrainState
 from ic_gan_tpu_torch.train.step import TrainConfig, make_train_step
+from ic_gan_tpu_torch.train.stylegan2_step import SG2TrainConfig, SG2TrainState, make_sg2_train_step
 
 pytestmark = pytest.mark.cuda
+ACTS = list(activation_funcs)
 
 
 @pytest.fixture(autouse=True)
@@ -180,3 +189,142 @@ def test_toy_train_step_launches_both_kernels_and_trains():
     assert all(torch.isfinite(v).all() for v in metrics.values())
     after = list(g.parameters()) + list(d.parameters())
     assert all(not torch.equal(a, b) for a, b in zip(after, before) if a.dim() >= 2)
+
+
+# --- kernels B3 (row shift) and B4 (bias-activation), and the StyleGAN2 step ---------
+
+def _row_case(rows, L, lo, hi, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, L), generator=gen, device="cuda").to(dtype)
+    return x, lo + (hi - lo) * torch.rand((rows,), generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("rows,L,l_out,lo,hi", [
+    (2 * 3 * 72, 144, 72, -10.0, 82.0),      # a shear pass (l_out < L)
+    (2 * 3 * 72, 72, 144, -82.0, 10.0),      # its adjoint (l_out > L)
+    (1001, 333, 517, -700.0, 700.0),         # rows beyond both ends of the frame
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_shift_kernel_matches_plain(rows, L, l_out, lo, hi, dtype):
+    """f32 1e-6 (tests/test_row_shift.py:26); bf16 atol and rtol 2e-2 (:106)."""
+    x, off = _row_case(rows, L, lo, hi, dtype)
+    before = row_shift_fwd.launches
+    got = row_shift_fwd(x, off, l_out)
+    torch.cuda.synchronize()
+    assert row_shift_fwd.launches == before + 1
+    ref = row_shift_ref(x, off, l_out)
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 1e-6
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_row_shift_function_to_second_order_and_integer_shifts():
+    """The backward launches the kernel again (order 1), the double backward
+    once more (order 2); against autograd of the plain version, 1e-6 and
+    1e-5 (tests/test_row_shift.py:53-56).  Integer shifts are exact."""
+    x, off = _row_case(512, 100, -60.0, 160.0, torch.float32, seed=1)
+    before = dict(row_shift_fwd.launches_by_order)
+    out = []
+    for fn in (row_shift, row_shift_ref):
+        xx = x.clone().requires_grad_(True)
+        (g1,) = torch.autograd.grad(torch.sin(fn(xx, off, 50)).sum(), xx, create_graph=True)
+        (g2,) = torch.autograd.grad(g1.square().sum(), xx)
+        out.append((g1.detach(), g2))
+    after = row_shift_fwd.launches_by_order
+    # Order 1 twice: the first gradient, and again inside the second, through
+    # sin's derivative; order 2 once: the adjoint of the adjoint.
+    assert [after[k] - before.get(k, 0) for k in (0, 1, 2)] == [1, 2, 1]
+    assert (out[0][0] - out[1][0]).abs().max().item() <= 1e-6
+    assert (out[0][1] - out[1][1]).abs().max().item() <= 1e-5
+    xi, off_i = x, torch.round(off)
+    assert torch.equal(row_shift(xi, off_i, 100), row_shift_ref(xi, off_i, 100))
+
+
+def test_row_shift_kernel_rejects_what_it_does_not_take():
+    x, off = _row_case(4, 16, -2.0, 2.0, torch.float32)
+    with pytest.raises(ValueError):
+        row_shift_fwd(x.half(), off)
+    with pytest.raises(ValueError):
+        row_shift_fwd(x, off.double())
+    with pytest.raises(ValueError):
+        row_shift_fwd(x.t(), torch.zeros(16, device="cuda"))
+    with pytest.raises(ValueError):
+        row_shift_fwd(x, off.cpu())
+
+
+@pytest.mark.parametrize("shape", [(16, 512), (4, 64, 32, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_act_kernel_matches_plain(shape, dtype):
+    """Every activation, bias or none, clamp or none.  f32 1e-6 of
+    max(1, max|plain|) (tests/test_pallas_bias_act.py:23); bf16 atol and
+    rtol 2e-2: the plain version rounds after each step, the kernel once."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    b = torch.randn((shape[1],), generator=gen, device="cuda").to(dtype)
+    for act in ACTS:
+        for bias in (b, None):
+            for clamp in (None, 1.0):
+                before = bias_act_fwd.launches
+                got = bias_act_fwd(x, bias, 1, act, None, None, clamp)
+                torch.cuda.synchronize()
+                assert bias_act_fwd.launches == before + 1
+                ref = bias_act_ref(x, bias, 1, act, None, None, clamp)
+                assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+                if dtype == torch.float32:
+                    bar = 1e-6 * max(1.0, ref.abs().max().item())
+                    assert (got - ref).abs().max().item() <= bar, (act, clamp)
+                else:
+                    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_bias_act_function_to_second_order(act):
+    """BiasAct (kernel forward, torch backward) against autograd of the
+    plain version: 1e-5 first order, 1e-4 second (test_pallas_bias_act.py:
+    55, 68), each of max(1, max|plain|); the backward launches nothing."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((4, 64, 8, 8), generator=gen, device="cuda")
+    b = torch.randn((64,), generator=gen, device="cuda")
+    clamp = 1.0 if act in ("lrelu", "relu", "swish") else None
+    out = []
+    for fn in (bias_act, bias_act_ref):
+        xx, bb = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        before = bias_act_fwd.launches
+        y = fn(xx, bb, 1, act, None, None, clamp)
+        gx, gb = torch.autograd.grad(y.square().sum(), (xx, bb), create_graph=True)
+        (h,) = torch.autograd.grad(gx.square().sum(), xx)
+        assert bias_act_fwd.launches - before == (1 if fn is bias_act else 0)
+        out.append((gx.detach(), gb.detach(), h))
+    for got, ref, bar in zip(out[0], out[1], (1e-5, 1e-5, 1e-4)):
+        assert (got - ref).abs().max().item() <= bar * max(1.0, ref.abs().max().item())
+
+
+def test_toy_sg2_steps_launch_b3_and_b4_and_train():
+    """A main and a reg step of a toy StyleGAN2-ADA on the card: B3 in its
+    forward, adjoint and double backward, B4 in G and D; finite losses,
+    moving weights and a path-length mean off 0."""
+    cfg = StyleGAN2Config(img_resolution=32, z_dim=16, h_dim=24, w_dim=16, channel_base=1024,
+                          channel_max=64, num_fp16_res=2, num_mapping_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g, d = SG2Generator(cfg, generator=gen), SG2Discriminator(cfg, generator=gen)
+    tcfg = SG2TrainConfig()
+    state = SG2TrainState.create(g, d, tcfg)
+    pipe = AugmentPipe.from_spec("bgc", geom_impl="fast")
+    batch = dict(x=torch.rand((4, 3, 32, 32), generator=gen, device="cuda") * 2 - 1,
+                 h=torch.randn((4, 24), generator=gen, device="cuda"),
+                 gen_h=torch.randn((4, 24), generator=gen, device="cuda"))
+    w0 = g.synthesis.b32.conv1.weight.detach().clone()
+    for reg in (False, True):
+        b3 = dict(row_shift_fwd.launches_by_order)
+        b4 = bias_act_fwd.launches
+        state, metrics = make_sg2_train_step(tcfg, cfg.z_dim, do_pl=reg, do_r1=reg,
+                                             augment_fn=pipe)(state, batch, gen)
+        torch.cuda.synchronize()
+        orders = {k: v - b3.get(k, 0) for k, v in row_shift_fwd.launches_by_order.items()
+                  if v != b3.get(k, 0)}
+        assert orders == ({0: 6, 1: 4, 2: 2} if reg else {0: 6, 1: 2})
+        assert bias_act_fwd.launches > b4
+        assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert state.pl_mean.item() != 0.0 and not torch.equal(g.synthesis.b32.conv1.weight, w0)
