@@ -8,9 +8,12 @@ Phases, run in order; any failure ends the run with a non-zero exit:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
 2. build every kernel under ``ic_gan_tpu_torch/csrc`` with nvcc, in parallel,
-   into ``ic_gan_tpu_torch/build/``;
+   into ``ic_gan_tpu_torch/build/``, and count the tensor-core instructions
+   of each bf16 attention kernel in its SASS;
 3. every kernel against its plain PyTorch version on the card, at the two
-   paths' shapes and a few others, with the tolerance stated beside each;
+   paths' shapes and a few others, with the tolerance stated beside each
+   (the attention forward also its log-sum-exp; the backward also run twice
+   for bit-identical results);
 4. kernel timings at the paths' shapes: the kernel, its plain version, one
    library call computing the same function (a yardstick the port never
    calls), and the least time the card could take;
@@ -49,6 +52,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -116,6 +120,15 @@ BWD_CASES = [
 ]
 BWD_F32_ATOL = 1e-4
 BWD_BF16_TOL = dict(atol=5e-2, rtol=2e-2)
+# The forward's log-sum-exp against the plain version's (torch.logsumexp of
+# cuBLAS's f32 logits): f32 inputs atol 1e-5.  bf16 inputs: the kernel's
+# logits come from the tensor cores' f32 accumulation, whose order and
+# rounding differ from cuBLAS's by a few ulp of the largest logit (one ulp
+# is 1.9e-6 at |lse| 16-32), so atol 1e-5 + rtol 1e-6; an lse error of
+# 3.5e-5 moves p = exp(s - lse) by 3.5e-5 of itself, under a hundredth of
+# one bf16 rounding.
+LSE_F32_ATOL = 1e-5
+LSE_BF16_TOL = dict(atol=1e-5, rtol=1e-6)
 
 MAIN_G = dict(resolution=256, G_ch=96, G_attn="64")  # the icgan res256 geometry
 SAMPLER_BATCH = 128
@@ -225,28 +238,45 @@ def roofline_ms(nbytes, flops, dtype):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_flops(shape) -> float:
+    """Operations of softmax(θφᵀ)·g: the two products, 2·N·Lq·Lk·(d + dv)."""
+    n, lq, lk, d, dv = shape
+    return 2.0 * n * lq * lk * (d + dv)
+
+
+def attention_bwd_flops(shape) -> float:
+    """Operations of (dθ, dφ, dg): 2·N·Lq·Lk·(3d + 2dv), the logits, dp, dθ,
+    dφ and dg products."""
+    n, lq, lk, d, dv = shape
+    return 2.0 * n * lq * lk * (3 * d + 2 * dv)
+
+
 def attention_bound_ms(shape, dtype):
     """Least time for softmax(θφᵀ)·g: the larger of its operations over the
     peak rate for the type and its bytes (inputs read once, output written
     once) over the memory rate."""
     n, lq, lk, d, dv = shape
-    flops = 2.0 * n * lq * lk * (d + dv)
     nbytes = torch.finfo(dtype).bits // 8 * (n * lq * d + n * lk * d + n * lk * dv + n * lq * dv)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return roofline_ms(nbytes, attention_flops(shape), dtype)
 
 
 def attention_bwd_bound_ms(shape, dtype):
-    """Least time for (dθ, dφ, dg): 2·N·Lq·Lk·(3d + 2dv) operations (the
-    logits, dp, dθ, dφ and dg products) over the peak rate, against θ, φ, g
-    and do read once and the three gradients written once."""
+    """Least time for (dθ, dφ, dg): its operations over the peak rate, against
+    θ, φ, g and do read once and the three gradients written once (the
+    forward's (N, Lq) f32 log-sum-exp adds under 0.5 %)."""
     n, lq, lk, d, dv = shape
-    flops = 2.0 * n * lq * lk * (3 * d + 2 * dv)
     inputs = n * lq * d + n * lk * d + n * lk * dv + n * lq * dv
     grads = n * lq * d + n * lk * d + n * lk * dv
     nbytes = torch.finfo(dtype).bits // 8 * (inputs + grads)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return roofline_ms(nbytes, attention_bwd_flops(shape), dtype)
+
+
+def rates(t: dict, flops: float) -> dict:
+    """``t`` with its achieved TFLOP/s (the bound's operations over the
+    kernel's time) and its share of the bound (bound_ms / kernel_ms)."""
+    t["tflops"] = flops / t["kernel_ms"] / 1e9
+    t["of_bound"] = t["bound_ms"] / t["kernel_ms"]
+    return t
 
 
 def generator_flops_per_image(cfg) -> float:
@@ -314,28 +344,72 @@ def phase_build():
             f"thread; {sum(1 for b in spills if b)} spill, at most {max(spills, default=0)} bytes")
 
 
+def phase_tensor_cores() -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each attention
+    kernel, from ``cuobjdump --dump-sass`` of the built libraries.  Fails if a
+    bf16 instantiation (``*_mma``) has none.  Returns {kernel: count}."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    counts = {}
+    for lib in ("sagan_attention_fwd", "sagan_attention_bwd"):
+        sass = subprocess.run([tool, "--dump-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True, check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn is not None and re.search(r"\bHG?MMA\.", line):
+                counts[fn] += 1
+    named = {}
+    for fn, n in counts.items():
+        m = re.search(r"(sagan_attention_fwd_(?:mma|kernel)|attn_bwd_(?:q_mma|kv_mma|q_pass|k_pass))"
+                      r"I((?:Li\d+E)+)", fn)
+        name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>" if m else fn
+        named[name] = n
+    mma = {k: v for k, v in named.items() if "_mma" in k}
+    log("tensor-core instructions (HMMA/HGMMA in SASS) of each bf16 instantiation: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(mma.items())))
+    log("  f32 instantiations (CUDA cores): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(named.items()) if k not in mma))
+    if not mma or min(mma.values()) == 0:
+        raise AssertionError(f"a bf16 attention kernel has no tensor-core instruction: {mma}")
+    return mma
+
+
 def phase_kernels() -> dict:
     """Each case: max |kernel - plain| on the card.  Returns each kernel's
     error at its path's main bf16 shape."""
     errs = {}
     for name, shape, dtype, atol in ATTN_CASES:
         args = attention_inputs(shape, dtype)
-        got = sagan_attention_fwd(*args)
-        ref = sagan_attention_ref(*args)
+        got, lse = sagan_attention_fwd(*args, return_lse=True)
+        ref, ref_lse = sagan_attention_ref(*args, return_lse=True)
         torch.cuda.synchronize()
-        if got.shape != ref.shape or got.dtype != ref.dtype:
+        if got.shape != ref.shape or got.dtype != ref.dtype or lse.shape != ref_lse.shape:
             raise AssertionError(f"attention {name}: {got.shape}/{got.dtype} vs "
                                  f"{ref.shape}/{ref.dtype}")
         err = (got.float() - ref.float()).abs().max().item()
-        log(f"attention {name} {shape}: max|kernel - plain| = {err:.3e} (atol {atol:g})")
+        d_lse = (lse - ref_lse).abs()
+        if dtype == torch.float32:
+            lse_ok, lse_bar = d_lse.max().item() <= LSE_F32_ATOL, f"atol {LSE_F32_ATOL:g}"
+        else:
+            lse_ok = bool((d_lse <= LSE_BF16_TOL["atol"]
+                           + LSE_BF16_TOL["rtol"] * ref_lse.abs()).all())
+            lse_bar = "atol 1e-5 + rtol 1e-6"
+        log(f"attention {name} {shape}: max|kernel - plain| = {err:.3e} (atol {atol:g}); "
+            f"lse {d_lse.max().item():.3e} ({lse_bar}, max|lse| {ref_lse.abs().max().item():.2f})")
         if not err <= atol:
             raise AssertionError(f"attention {name}: max abs err {err} > {atol}")
+        if not lse_ok:
+            raise AssertionError(f"attention {name}: lse off by {d_lse.max().item()}")
         errs[name] = err
     bwd_err = None
     for name, shape in BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = attention_inputs(shape, dtype, with_do=True)
-            got = sagan_attention_bwd(*args)
+            _, lse = sagan_attention_ref(*args[:3], return_lse=True)
+            got = sagan_attention_bwd(*args, lse)
             torch.cuda.synchronize()
             ref = sagan_attention_bwd_ref(*args)
             worst = 0.0
@@ -346,19 +420,27 @@ def phase_kernels() -> dict:
                 rmax = r.float().abs().max().item()
                 if dtype == torch.float32:
                     bar = BWD_F32_ATOL * max(1.0, rmax)
-                    ok = d.max().item() <= bar
+                    ratio = d.max().item() / bar
                     how = f"bar {bar:.3e} = 1e-4·max(1, {rmax:.3e})"
                 else:
-                    ok = bool((d <= BWD_BF16_TOL["atol"]
-                               + BWD_BF16_TOL["rtol"] * r.float().abs()).all())
+                    ratio = (d / (BWD_BF16_TOL["atol"]
+                                  + BWD_BF16_TOL["rtol"] * r.float().abs())).max().item()
                     how = "atol 5e-2 + rtol 2e-2"
                 log(f"attention bwd {name} {shape} {str(dtype)[6:]} {gname}: max|kernel - plain| "
-                    f"= {d.max().item():.3e}, max|plain| {rmax:.3e} ({how})")
-                if not ok:
+                    f"= {d.max().item():.3e}, max|plain| {rmax:.3e}, worst |Δ|/bar {ratio:.3f} "
+                    f"({how})")
+                if not ratio <= 1.0:
                     raise AssertionError(f"attention bwd {name} {dtype} {gname} out of bar")
                 worst = max(worst, d.max().item())
             if name == "G" and dtype == torch.bfloat16:
                 bwd_err = worst
+                # No atomics: the same inputs give the same bits.
+                again = sagan_attention_bwd(*args, lse)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                log(f"attention bwd G bf16 run twice: bit-identical {same}")
+                if not same:
+                    raise AssertionError("the attention backward is not deterministic")
+                del again
             del got, ref, args
             torch.cuda.empty_cache()  # the plain version's (N, Lq, Lk) f32 temps
     return dict(fwd=errs["main bf16"], bwd=bwd_err)
@@ -383,52 +465,52 @@ def sdpa_bwd_ms(args) -> float:
 
 
 def phase_timings() -> dict:
-    args = attention_inputs(MAIN_ATTN, torch.bfloat16)
-    t = dict(
-        kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*args)),
-        plain_ms=cuda_ms(lambda: sagan_attention_ref(*args)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*args, scale=1.0)),
-    )
-    t["bound_ms"], t["bound_by"] = attention_bound_ms(MAIN_ATTN, torch.bfloat16)
+    """The forward at the sampler's and the training step's shapes, bf16, as
+    each path calls it (the sampler without the log-sum-exp, training with
+    it); f32 at the sampler's shape."""
+    t = {}
+    for label, shape, with_lse in (("sampler", MAIN_ATTN, False), ("G", TRAIN_G_ATTN, True),
+                                   ("D", TRAIN_D_ATTN, True)):
+        a = attention_inputs(shape, torch.bfloat16)
+        ts = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*a, return_lse=with_lse)),
+                  plain_ms=cuda_ms(lambda: sagan_attention_ref(*a, return_lse=with_lse)),
+                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*a, scale=1.0)))
+        ts["bound_ms"], ts["bound_by"] = attention_bound_ms(shape, torch.bfloat16)
+        t[label] = rates(ts, attention_flops(shape))
+        log("attention bf16 {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+            "library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by})  "
+            "{tflops:.1f} TFLOP/s, {of_bound:.3f} of bound".format(label, shape, **ts))
+        del a
     args32 = attention_inputs(MAIN_ATTN, torch.float32)
     f32 = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*args32)),
                plain_ms=cuda_ms(lambda: sagan_attention_ref(*args32)))
     f32["bound_ms"], _ = attention_bound_ms(MAIN_ATTN, torch.float32)
-    log("attention bf16 {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
-        "library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by})".format(MAIN_ATTN, **t))
     log("attention f32 {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
-        "bound_ms {bound_ms:.4f}".format(MAIN_ATTN, **f32))
-    del args, args32
-    t["train_shapes"] = {}
-    for label, shape in (("G", TRAIN_G_ATTN), ("D", TRAIN_D_ATTN)):
-        a = attention_inputs(shape, torch.bfloat16)
-        ts = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*a)),
-                  plain_ms=cuda_ms(lambda: sagan_attention_ref(*a)),
-                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*a, scale=1.0)))
-        ts["bound_ms"], ts["bound_by"] = attention_bound_ms(shape, torch.bfloat16)
-        t["train_shapes"][label] = ts
-        log("attention bf16 train {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
-            "library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by})".format(
-                label, shape, **ts))
+        "bound_ms {bound_ms:.4f} (FP32 CUDA-core peak)".format(MAIN_ATTN, **f32))
     return t
 
 
 def phase_bwd_timings() -> dict:
-    """The backward at the training shapes, bf16: kernel, plain version,
-    the library's backward and the bound."""
+    """The backward at the training shapes, bf16: kernel, plain version of
+    the same contract (with the forward's log-sum-exp), the library's
+    backward and the bound."""
     out = {}
     for label, shape in (("G", TRAIN_G_ATTN), ("D", TRAIN_D_ATTN)):
         args = attention_inputs(shape, torch.bfloat16, with_do=True)
-        t = dict(kernel_ms=cuda_ms(lambda: sagan_attention_bwd(*args)),
-                 plain_ms=cuda_ms(lambda: sagan_attention_bwd_ref(*args), reps=3, warmup=1))
+        _, lse = sagan_attention_fwd(*args[:3], return_lse=True)
+        t = dict(kernel_ms=cuda_ms(lambda: sagan_attention_bwd(*args, lse)),
+                 plain_ms=cuda_ms(lambda: sagan_attention_bwd_ref(*args, lse=lse),
+                                  reps=3, warmup=1))
         torch.cuda.empty_cache()
         t["library_ms"] = sdpa_bwd_ms(args)
         t["bound_ms"], t["bound_by"] = attention_bwd_bound_ms(shape, torch.bfloat16)
+        rates(t, attention_bwd_flops(shape))
         log("attention bwd bf16 {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
             "library_ms {library_ms:.4f} (SDPA fwd+bwd less fwd)  bound_ms {bound_ms:.4f} "
-            "({bound_by})".format(label, shape, **t))
+            "({bound_by})  {tflops:.1f} TFLOP/s, {of_bound:.3f} of bound".format(
+                label, shape, **t))
         out[label] = t
-        del args
+        del args, lse
         torch.cuda.empty_cache()
     return out
 
@@ -1179,6 +1261,7 @@ def main(argv) -> int:
     card = phase_env()
     device = torch.device("cuda", 0)
     phase_build()
+    tensor_cores = phase_tensor_cores()
     max_err = phase_kernels()
     sg2_err = phase_b3_b4()
     timings = phase_timings()
@@ -1202,6 +1285,7 @@ def main(argv) -> int:
     by_path = lambda sampler, train_, sg2_train: dict(  # noqa: E731
         sampler=sampler, train=train_, sg2_train=sg2_train)
     b3, b4 = sg2_timings["B3"], sg2_timings["B4"]
+    b1 = timings["sampler"]
     kernels = [dict(
         name="sagan_attention_fwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_fwd.cu",
@@ -1209,10 +1293,11 @@ def main(argv) -> int:
         launches=main_run["launches"] + train["fwd"],
         launches_by_path=by_path(main_run["launches"], train["fwd"], 0),
         max_abs_err=max_err["fwd"],
-        ms=timings["kernel_ms"], plain_ms=timings["plain_ms"],
-        bound_ms=timings["bound_ms"], bound_by=timings["bound_by"],
-        library_ms=timings["library_ms"],
-        train_shapes=timings["train_shapes"],
+        ms=b1["kernel_ms"], plain_ms=b1["plain_ms"],
+        bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
+        library_ms=b1["library_ms"], tflops=b1["tflops"], of_bound=b1["of_bound"],
+        tensor_core_instructions={k: v for k, v in tensor_cores.items() if "fwd" in k},
+        train_shapes=dict(G=timings["G"], D=timings["D"]),
     ), dict(
         name="sagan_attention_bwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_bwd.cu",
@@ -1222,7 +1307,8 @@ def main(argv) -> int:
         max_abs_err=max_err["bwd"],
         ms=b2["kernel_ms"], plain_ms=b2["plain_ms"],
         bound_ms=b2["bound_ms"], bound_by=b2["bound_by"],
-        library_ms=b2["library_ms"],
+        library_ms=b2["library_ms"], tflops=b2["tflops"], of_bound=b2["of_bound"],
+        tensor_core_instructions={k: v for k, v in tensor_cores.items() if "bwd" in k},
         train_shapes=bwd_timings,
     ), dict(
         name="row_shift", route="cuda", source="ic_gan_tpu_torch/csrc/row_shift.cu",

@@ -7,8 +7,11 @@ On CUDA tensors its forward launches ``csrc/sagan_attention_fwd.cu`` (the
 port of ``_attn_kernel``) and its backward ``csrc/sagan_attention_bwd.cu``
 (the port of ``_attn_bwd_kernel``); on CPU tensors they run their plain
 PyTorch versions, ``sagan_attention_ref`` and ``sagan_attention_bwd_ref``.
-Unscaled, non-causal.  Each launch adds one to ``sagan_attention_fwd.launches``
-or ``sagan_attention_bwd.launches``.
+Both kernels dispatch on the dtype: bf16 runs on the tensor cores
+(Hopper's warpgroup MMA, ``wgmma``), f32 on the CUDA cores in full f32.  The
+forward hands its per-row log-sum-exp to the backward.  Unscaled,
+non-causal.  Each launch adds one to ``sagan_attention_fwd.launches`` or
+``sagan_attention_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -25,25 +28,46 @@ MAX_DV = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def sagan_attention_ref(theta: torch.Tensor, phi: torch.Tensor,
-                        g: torch.Tensor) -> torch.Tensor:
+def sagan_attention_ref(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
+                        return_lse: bool = False):
     """Plain version, as ``_attention_xla``: f32 logits and softmax, p cast
-    to g's type, second product accumulated in f32, output in g's type."""
+    to g's type, second product accumulated in f32, output in g's type.
+    With ``return_lse`` also each row's f32 log-sum-exp of the logits,
+    (N, Lq): the statistics the backward takes."""
     logits = torch.matmul(theta.float(), phi.float().transpose(1, 2))
     p = torch.softmax(logits, dim=-1)
-    return torch.matmul(p.to(g.dtype).float(), g.float()).to(g.dtype)
+    out = torch.matmul(p.to(g.dtype).float(), g.float()).to(g.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
 
 
 def sagan_attention_bwd_ref(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
-                            do: torch.Tensor):
+                            do: torch.Tensor, lse=None, o=None):
     """Plain backward, the explicit formula of ``_sagan_bwd``
-    (``attention.py:202-213``): p in f32, dp = do·gᵀ, ds = p⊙(dp −
-    rowsum(dp⊙p)), dθ = ds·φ, dφ = dsᵀ·θ, dg = pᵀ·do, all in f32, each
-    returned in its input's type."""
-    p = torch.softmax(torch.matmul(theta.float(), phi.float().transpose(1, 2)), dim=-1)
+    (``attention.py:202-213``): p in f32, dp = do·gᵀ, ds = p⊙(dp − delta),
+    dθ = ds·φ, dφ = dsᵀ·θ, dg = pᵀ·do, all in f32, each returned in its
+    input's type.
+
+    Without ``lse``, p is the softmax of the logits and delta = rowsum(dp⊙p).
+    Given the forward's saved state, p = exp(logits − lse) with ``lse`` the
+    (N, Lq) f32 log-sum-exp, and delta = rowsum(dp⊙p), or rowsum(do⊙o) when
+    the forward's output ``o`` is given too: equal in exact arithmetic.  The
+    kernel takes ``lse`` alone; the bf16 ``o`` is rounded too coarsely for
+    delta (``csrc/sagan_attention_bwd.cu``)."""
+    logits = torch.matmul(theta.float(), phi.float().transpose(1, 2))
+    if lse is None:
+        p = torch.softmax(logits, dim=-1)
+    else:
+        p = torch.exp(logits - lse.float().unsqueeze(-1))
+    del logits
     do32 = do.float()
     dp = torch.matmul(do32, g.float().transpose(1, 2))
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if o is None:
+        delta = (dp * p).sum(dim=-1, keepdim=True)
+    else:
+        delta = (do32 * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
     del dp
     dg = torch.matmul(p.transpose(1, 2), do32)
     del p
@@ -84,6 +108,14 @@ def _check(*ts):
         raise ValueError(f"{names} must be contiguous")
 
 
+def _check_lse(lse, theta):
+    n, lq = theta.shape[:2]
+    if lse.device != theta.device or lse.dtype != torch.float32 \
+            or tuple(lse.shape) != (n, lq) or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {(n, lq)} tensor on "
+                         f"{theta.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
 def _entry(name: str, n_ptrs: int):
     fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
@@ -96,50 +128,54 @@ def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def sagan_attention_fwd(theta: torch.Tensor, phi: torch.Tensor,
-                        g: torch.Tensor) -> torch.Tensor:
+def sagan_attention_fwd(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
+                        return_lse: bool = False):
     """softmax(θ·φᵀ)·g.  θ (N, Lq, d), φ (N, Lk, d), g (N, Lk, dv) →
-    (N, Lq, dv) in g's type.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream, or raise."""
+    (N, Lq, dv) in g's type; with ``return_lse`` also the (N, Lq) f32
+    log-sum-exp of the logits.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream (bf16 on the tensor
+    cores, f32 on the CUDA cores), or raise."""
     if _on_cpu(theta, phi, g):
-        return sagan_attention_ref(theta, phi, g)
+        return sagan_attention_ref(theta, phi, g, return_lse=return_lse)
     _check(theta, phi, g)
     n, lq, d = theta.shape
     lk, dv = g.shape[1], g.shape[2]
     out = torch.empty((n, lq, dv), dtype=g.dtype, device=g.device)
-    fn = _entry("sagan_attention_fwd", 4)
+    lse = torch.empty((n, lq), dtype=torch.float32, device=g.device) if return_lse else None
+    fn = _entry("sagan_attention_fwd", 5)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(theta.data_ptr(), phi.data_ptr(), g.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  n, lq, lk, d, dv, _DTYPE_CODES[g.dtype], stream)
     if err != 0:
         raise RuntimeError(f"sagan_attention_fwd launch failed: cudaError {err}")
     sagan_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def sagan_attention_bwd(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor,
-                        do: torch.Tensor):
+                        do: torch.Tensor, lse: torch.Tensor):
     """(dθ, dφ, dg) of softmax(θ·φᵀ)·g for the output gradient ``do``
-    (N, Lq, dv), each in its input's type.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel's two passes on the current
-    stream, or raise."""
-    if _on_cpu(theta, phi, g, do):
-        return sagan_attention_bwd_ref(theta, phi, g, do)
+    (N, Lq, dv), given the forward's (N, Lq) f32 log-sum-exp ``lse``; each
+    gradient in its input's type.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel's two passes on the current stream (bf16 on
+    the tensor cores, f32 on the CUDA cores), or raise."""
+    if _on_cpu(theta, phi, g, do, lse):
+        return sagan_attention_bwd_ref(theta, phi, g, do, lse=lse)
     _check(theta, phi, g, do)
+    _check_lse(lse, theta)
     n, lq, d = theta.shape
     lk, dv = g.shape[1], g.shape[2]
     dtheta, dphi, dg = torch.empty_like(theta), torch.empty_like(phi), torch.empty_like(g)
-    # Per-row log-sum-exp and rowsum(dp⊙p), handed from the q-tile pass to
-    # the k-tile pass.
-    stats = torch.empty((2, n, lq), dtype=torch.float32, device=g.device)
+    # Per-row delta = rowsum(dp⊙p), handed from the q-tile pass to the k-tile pass.
+    delta = torch.empty((n, lq), dtype=torch.float32, device=g.device)
     fn = _entry("sagan_attention_bwd", 9)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(theta.data_ptr(), phi.data_ptr(), g.data_ptr(), do.data_ptr(),
-                 dtheta.data_ptr(), dphi.data_ptr(), dg.data_ptr(),
-                 stats[0].data_ptr(), stats[1].data_ptr(),
-                 n, lq, lk, d, dv, _DTYPE_CODES[g.dtype], stream)
+                 lse.data_ptr(), dtheta.data_ptr(), dphi.data_ptr(), dg.data_ptr(),
+                 delta.data_ptr(), n, lq, lk, d, dv, _DTYPE_CODES[g.dtype], stream)
     if err != 0:
         raise RuntimeError(f"sagan_attention_bwd launch failed: cudaError {err}")
     sagan_attention_bwd.launches += 1
@@ -152,19 +188,23 @@ sagan_attention_bwd.launches = 0
 
 class SAGANAttention(torch.autograd.Function):
     """softmax(θ·φᵀ)·g with the kernel pair as forward and backward; saves
-    θ, φ and g, the JAX residuals (``attention.py:192-193``).  First order
-    only, as in the JAX package."""
+    θ, φ and g, the JAX residuals (``attention.py:192-193``), and the
+    forward's log-sum-exp, so the backward needs no statistics sweep.  First
+    order only, as in the JAX package."""
 
     @staticmethod
     def forward(ctx, theta, phi, g):
-        ctx.save_for_backward(theta, phi, g)
-        return sagan_attention_fwd(theta, phi, g)
+        if not any(ctx.needs_input_grad):  # inference: no statistics to keep
+            return sagan_attention_fwd(theta, phi, g)
+        out, lse = sagan_attention_fwd(theta, phi, g, return_lse=True)
+        ctx.save_for_backward(theta, phi, g, lse)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        theta, phi, g = ctx.saved_tensors
-        return sagan_attention_bwd(theta, phi, g, do.contiguous())
+        theta, phi, g, lse = ctx.saved_tensors
+        return sagan_attention_bwd(theta, phi, g, do.contiguous(), lse)
 
 
 sagan_attention = SAGANAttention.apply

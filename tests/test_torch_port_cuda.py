@@ -122,33 +122,95 @@ def _assert_grads_close(got, ref, dtype):
             torch.testing.assert_close(t, r, atol=5e-2, rtol=2e-2, msg=name)
 
 
-@pytest.mark.parametrize("shape", BWD_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_bwd_kernel_matches_plain(shape, dtype):
+def _bwd_inputs(shape, dtype):
+    """θ, φ, g, do and the plain forward's log-sum-exp."""
     args = _inputs(shape, dtype)
     gen = torch.Generator(device="cuda").manual_seed(1)
     do = torch.randn(args[0].shape[:2] + (shape[4],), generator=gen, device="cuda").to(dtype)
+    _, lse = sagan_attention_ref(*args, return_lse=True)
+    return (*args, do), lse
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_kernel_matches_plain(shape, dtype):
+    args, lse = _bwd_inputs(shape, dtype)
     before = sagan_attention_bwd.launches
-    got = sagan_attention_bwd(*args, do)
+    got = sagan_attention_bwd(*args, lse)
     torch.cuda.synchronize()
     assert sagan_attention_bwd.launches == before + 1
-    _assert_grads_close(got, sagan_attention_bwd_ref(*args, do), dtype)
+    _assert_grads_close(got, sagan_attention_bwd_ref(*args), dtype)
+
+
+# bf16 on the tensor cores: d 24 and dv 96 (k-dimension padded to 32), d and
+# dv off the 16-byte rows (d % 8 != 0: the element-wise load path), ragged
+# Lq and Lk.
+TC_SHAPES = [
+    (2, 4096, 1024, 24, 96),
+    (2, 300, 70, 12, 20),
+    (3, 1000, 250, 24, 96),
+    (2, 77, 19, 5, 7),
+]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_attention_bf16_tensor_core_cases(shape):
+    args = _inputs(shape, torch.bfloat16)
+    out, lse = sagan_attention_fwd(*args, return_lse=True)
+    ref, ref_lse = sagan_attention_ref(*args, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert (out.float() - ref.float()).abs().max().item() <= 3e-2
+    # Tensor-core f32 accumulation of the logits: atol 1e-5 + rtol 1e-6.
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-6)
+    bargs, blse = _bwd_inputs(shape, torch.bfloat16)
+    _assert_grads_close(sagan_attention_bwd(*bargs, blse), sagan_attention_bwd_ref(*bargs),
+                        torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_function_hands_lse_from_forward_to_backward_bf16(shape):
+    args = [a.requires_grad_(True) for a in _inputs(shape, torch.bfloat16)]
+    before = (sagan_attention_fwd.launches, sagan_attention_bwd.launches)
+    out = sagan_attention(*args)
+    do = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(2),
+                     device="cuda").to(torch.bfloat16)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (sagan_attention_fwd.launches, sagan_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = sagan_attention_bwd_ref(*[a.detach() for a in args], do)
+    _assert_grads_close([a.grad for a in args], ref, torch.bfloat16)
+
+
+def test_attention_bwd_bf16_is_deterministic():
+    # Two passes and no atomics: the same inputs give the same bits.
+    args, lse = _bwd_inputs((2, 4096, 1024, 48, 192), torch.bfloat16)
+    first = sagan_attention_bwd(*args, lse)
+    second = sagan_attention_bwd(*args, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_attention_bwd_kernel_rejects_what_it_does_not_take():
     t, p, g = _inputs((1, 64, 16, 8, 16), torch.float32)
     do = torch.zeros(1, 64, 16, device="cuda")
+    lse = torch.zeros(1, 64, device="cuda")
     with pytest.raises(ValueError):
-        sagan_attention_bwd(t, p, g, do.half())
+        sagan_attention_bwd(t, p, g, do.half(), lse)
     with pytest.raises(ValueError):
-        sagan_attention_bwd(t, p, g, do[:, :32])
+        sagan_attention_bwd(t, p, g, do[:, :32], lse)
     with pytest.raises(ValueError):
-        sagan_attention_bwd(t, p, g, do.transpose(1, 2).contiguous().transpose(1, 2))
+        sagan_attention_bwd(t, p, g, do.transpose(1, 2).contiguous().transpose(1, 2), lse)
     with pytest.raises(ValueError):
-        sagan_attention_bwd(t, p, g, do.cpu())
+        sagan_attention_bwd(t, p, g, do.cpu(), lse)
     wide = torch.zeros(1, 16, 257, device="cuda")
     with pytest.raises(ValueError):
-        sagan_attention_bwd(t, p, wide, torch.zeros(1, 64, 257, device="cuda"))
+        sagan_attention_bwd(t, p, wide, torch.zeros(1, 64, 257, device="cuda"), lse)
+    with pytest.raises(ValueError):  # lse must be (N, Lq) f32 on the same device
+        sagan_attention_bwd(t, p, g, do, lse.double())
+    with pytest.raises(ValueError):
+        sagan_attention_bwd(t, p, g, do, lse[:, :32])
 
 
 def test_function_backward_launches_the_kernel():
