@@ -29,9 +29,12 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    and images per second;
 8. train-step parity: one step of a res-64 ch-16 G and D in f32 from the
    same weights and z on the card and on the CPU;
-9. kernels B3 (ADA row shift) and B4 (fused bias-activation) against their
-   plain versions on the card, forward, first and second order, f32 and
-   bf16, then their timings at the StyleGAN2 path's shapes;
+9. kernels B3 (ADA row shift) and B4 (fused bias-activation: its forward
+   and its backward kernel) against their plain versions on the card: B4 at
+   the path shape and at the edges of its vector path, nine activations,
+   bias or none, clamp or none; both to second order; f32 and bf16; then
+   their timings at the StyleGAN2 path's shapes (B3 also at its adjoint's,
+   B4's backward also as the plain formula that it replaced);
 10. the StyleGAN2-ADA path: the IC-GAN 256² G and D (``h_dim`` 2048,
    ``channel_base`` 16384) from a seed, 'bgc' ADA on the fast geometry at p
    0.5, ``make_sg2_train_step`` at microbatch 16, a warm-up of each phase,
@@ -43,9 +46,10 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    same weights and draws.
 
 ``--profile`` adds device-time breakdowns of one sampler batch, one BigGAN
-train step and one StyleGAN2 main and reg step.  The last three lines of
-standard output are the card (name, power limit), one JSON object
-describing each kernel, and ``{"ok": true, "device": ...}``.
+train step and one StyleGAN2 main and reg step, with the kernels launched
+inside ``BiasAct.backward`` (its ``bias_act_bwd`` range) summed apart.  The
+last three lines of standard output are the card (name, power limit), one
+JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -174,6 +178,17 @@ SG2_P = 0.5          # every ADA transform draws for real; the work does not dep
 B3_PATH = (SG2_MB * 3 * 792, 1584, 792)
 # B4's largest path call: the 256² blocks of G and D, bf16.
 B4_PATH = (SG2_MB, 64, 256, 256)
+# B4's checks: the path shape, and the edges of its kernels' vector path.
+# With a bias: the FC layers (inner 1, C a multiple of 8) take the row layout
+# (the bias read as a vector); conv planes, odd C over 4x4 planes among them,
+# the plane layout (a vector in one channel); 3x3 and 5x5 planes, an FC layer
+# of odd C and contiguous views whose pointers are not 16-byte aligned the
+# scalar path.  With no bias every aligned case takes the plane layout, its
+# ragged tail the scalar path.
+B4_CASES = [("path", B4_PATH), ("fc", (SG2_MB, 512)), ("conv 32^2", (4, 64, 32, 32)),
+            ("3x3 planes", (4, 24, 3, 3)), ("5x5 planes", (4, 24, 5, 5)),
+            ("odd C", (3, 7, 4, 4)), ("odd C fc", (5, 9)),
+            ("storage offset 1", (2, 16, 4, 4))]
 # Bars.  B3 (tests/test_row_shift.py:26, 56, 106): f32 1e-6, second order
 # 1e-5; bf16 atol 2e-2 + rtol 2e-2 (both round one f32 lerp, but a fused
 # multiply-add can land a value on the other side of a rounding boundary).
@@ -202,7 +217,7 @@ def log(msg: str):
 def reset_counts():
     """Every kernel's launch count to 0."""
     sagan_attention_fwd.launches = sagan_attention_bwd.launches = 0
-    ba.bias_act_fwd.launches = 0
+    ba.reset_launches()
     rs.reset_launches()
 
 
@@ -213,11 +228,14 @@ def sync():
 
 def counts() -> dict:
     return dict(B1=sagan_attention_fwd.launches, B2=sagan_attention_bwd.launches,
-                B3=rs.row_shift_fwd.launches, B4=ba.bias_act_fwd.launches)
+                B3=rs.row_shift_fwd.launches, B4=ba.bias_act_fwd.launches,
+                B4bwd=ba.bias_act_bwd.launches)
 
 
 def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms, by CUDA events around each run."""
+    """Median device time of ``fn`` in ms, by CUDA events around each run.
+    For one launch this includes the host's time in the wrapper before the
+    kernel starts: the stream is idle when the first event is recorded."""
     for _ in range(warmup):
         fn()
     times = []
@@ -229,6 +247,25 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, n: int = 10) -> float:
+    """``cuda_ms`` of ``n`` calls of ``fn`` in a row, over ``n``: the host's
+    time in the wrappers then overlaps the device's work.  Logged beside a
+    kernel's ``cuda_ms`` to show how much of that is the host's."""
+    return cuda_ms(lambda: [fn() for _ in range(n)]) / n
+
+
+def host_us(fn, n: int = 100) -> float:
+    """Host time of one call of ``fn`` in µs: ``n`` calls queued without
+    waiting for the device (whose work per call is longer), over ``n``."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    sync()
+    return 1e6 * t / n
 
 
 def roofline_ms(nbytes, flops, dtype):
@@ -616,7 +653,8 @@ def phase_profile(label, fn):
     for e in prof.key_averages():
         # Operator rows and annotations ("Optimizer.step#Adam.step") repeat
         # their kernels' time.
-        if e.device_type != DeviceType.CUDA or re.fullmatch(r"[\w.]+#[\w.]+", e.key):
+        if e.device_type != DeviceType.CUDA or re.fullmatch(r"[\w.]+#[\w.]+", e.key) \
+                or e.key == B4_BWD_RANGE:
             continue
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
@@ -628,7 +666,8 @@ def phase_profile(label, fn):
         log("profile: the trace holds no device time (not measured)")
         return
     log(f"profile: {label}: wall {1e3 * wall:.2f} ms, device busy "
-        f"{total:.2f} ms ({100 * total / (1e3 * wall):.1f} % of wall)")
+        f"{total:.2f} ms ({100 * total / (1e3 * wall):.1f} % of wall), "
+        f"{sum(r[1] for r in rows)} kernel launches")
     classes = {}
     for ms, count, key in rows:
         c = kernel_class(key)
@@ -637,6 +676,33 @@ def phase_profile(label, fn):
         log(f"  class {c:<34s} {ms:9.3f} ms {100 * ms / total:5.1f} %  x{count}")
     for ms, count, key in sorted(rows, reverse=True)[:25]:
         log(f"  {ms:9.3f} ms {100 * ms / total:5.1f} %  x{count:<4d} {key[:110]}")
+    calls, ms, n = range_kernels(prof, B4_BWD_RANGE)
+    if calls:
+        log(f"  range {B4_BWD_RANGE} (BiasAct.backward, B4's backward): {calls} calls, {n} "
+            f"kernel launches, {ms:.3f} ms of device time ({100 * ms / total:.1f} %)")
+
+
+B4_BWD_RANGE = "bias_act_bwd"   # the record_function range around BiasAct.backward
+
+
+def range_kernels(prof, name):
+    """(calls, device ms, launches) of the kernels launched inside every
+    ``record_function(name)`` range: each kernel is attached to the host event
+    that launched it, and those events are the range's descendants."""
+    from torch.autograd import DeviceType
+
+    ranges = [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU]
+    ms, n, seen = 0.0, 0, set()
+    stack = list(ranges)
+    while stack:
+        e = stack.pop()
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        ms += sum(k.duration for k in e.kernels) / 1e3
+        n += len(e.kernels)
+        stack.extend(e.cpu_children)
+    return len(ranges), ms, n
 
 
 # (class, substrings of the kernel name), matched in order.
@@ -644,6 +710,7 @@ _KERNEL_CLASSES = (
     ("attention forward B1", ("sagan_attention_fwd",)),
     ("attention backward B2", ("attn_bwd_",)),
     ("ADA row shift B3", ("row_shift",)),
+    ("bias-activation B4 backward", ("bias_act_bwd",)),
     ("bias-activation B4", ("bias_act",)),
     ("cuDNN NCHW<->NHWC transforms", ("nchwToNhwc", "nhwcToNchw")),
     ("convs (cuDNN)", ("xmma", "implicit_gemm", "conv", "dgrad", "wgrad")),
@@ -775,7 +842,8 @@ def phase_train(device, profile: bool) -> dict:
         log("step: " + "  ".join(f"{k} {v:.4f}" for k, v in m.items()))
     if not all(math.isfinite(v) for m in metrics_all for v in m.values()):
         raise AssertionError("a loss or a non-finite count is not finite")
-    if launches != dict(fwd=4 * n_steps, bwd=3 * n_steps) or counts()["B3"] or counts()["B4"]:
+    if launches != dict(fwd=4 * n_steps, bwd=3 * n_steps) or counts()["B3"] \
+            or counts()["B4"] or counts()["B4bwd"]:
         raise AssertionError(f"launches {counts()} over {n_steps} steps, expected B1 4 and "
                              "B2 3 per step, B3 and B4 none")
     unchanged = [k for k, v in watch.items() if torch.equal(v, before[k])]
@@ -899,7 +967,7 @@ def b3_window_bytes(x, off, l_out) -> int:
 def phase_b3_b4() -> dict:
     """B3 and B4 against their plain versions on the card."""
     rows, L, l_out = B3_PATH
-    errs = dict(B3=0.0, B4=0.0)
+    errs = dict(B3=0.0)
     # Offsets as the shear passes give them (the window mostly in frame),
     # and beyond both ends of the frame in the ragged case.
     cases = [("path", (rows, L, l_out, -40.0, L - l_out + 40.0)),
@@ -934,34 +1002,23 @@ def phase_b3_b4() -> dict:
     log(f"B3 gradients (4096, 400) -> 200 f32: first order {e1:.3e}, second order {e2:.3e}")
 
     gen = torch.Generator(device=DEV).manual_seed(13)
-    for shape in ((SG2_MB, 512), (4, 64, 32, 32)):
-        worst = {}
+    for name, shape in B4_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, generator=gen, device=DEV).to(dtype)
-            b = torch.randn((shape[1],), generator=gen, device=DEV).to(dtype)
-            for act in ba.activation_funcs:
-                for bias in (b, None):
-                    for clamp in (None, 1.0):
-                        got = ba.bias_act_fwd(x, bias, 1, act, None, None, clamp)
-                        ref = ba.bias_act_ref(x, bias, 1, act, None, None, clamp)
-                        err = _close(got, ref, B4_F32, f"B4 {act} {shape} {dtype}")
-                        worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), err)
-        log(f"B4 forward {shape}, 9 activations x bias or none x clamp or none: worst "
-            f"max|kernel - plain| {worst}")
-    x = torch.randn(B4_PATH, generator=gen, device=DEV).bfloat16() * 30
-    b = torch.randn((B4_PATH[1],), generator=gen, device=DEV).bfloat16()
-    clamp, gain = 256.0, math.sqrt(2.0)
-    errs["B4"] = _close(ba.bias_act_fwd(x, b, 1, "lrelu", None, None, clamp),
-                        ba.bias_act_ref(x, b, 1, "lrelu", None, None, clamp), B4_F32,
-                        "B4 path bf16")
-    log(f"B4 path {B4_PATH} bf16 lrelu, gain {gain:.4f}, clamp {clamp:g}: max|kernel - plain| "
-        f"{errs['B4']:.3e}")
-    del x
-    # Gradients to second order: BiasAct (kernel forward, torch backward)
-    # against autograd through the plain version.
+            worst = b4_case(name, shape, dtype, gen)
+            log(f"B4 {name} {shape} {str(dtype)[6:]}, 9 activations x bias or none x clamp or "
+                f"none: worst max|kernel - plain| forward {worst['fwd']:.3e}, backward "
+                f"{worst['bwd']:.3e}")
+            if name == "path" and dtype == torch.bfloat16:
+                errs["B4"], errs["B4bwd"] = worst["path_fwd"], worst["path_bwd"]
+    log(f"B4 path {B4_PATH} bf16 lrelu, gain {math.sqrt(2.0):.4f}, clamp 256: max|kernel - "
+        f"plain| forward {errs['B4']:.3e}, backward {errs['B4bwd']:.3e}")
+    # Gradients to second order: BiasAct (forward kernel; backward BiasActGrad,
+    # whose own backward is the backward kernel again) against autograd
+    # through the plain version.
     x = torch.randn((4, 64, 16, 16), generator=gen, device=DEV)
     b = torch.randn((64,), generator=gen, device=DEV)
     w1 = w2 = 0.0
+    bwd_before = ba.bias_act_bwd.launches
     for act in ba.activation_funcs:
         out = []
         for fn in (ba.bias_act, ba.bias_act_ref):
@@ -973,51 +1030,138 @@ def phase_b3_b4() -> dict:
         w1 = max(w1, _close(out[0][0], out[1][0], B4_1ST, f"B4 {act} d/dx"),
                  _close(out[0][1], out[1][1], B4_1ST, f"B4 {act} d/db"))
         w2 = max(w2, _close(out[0][2], out[1][2], B4_2ND, f"B4 {act} second order"))
+    bwd_launched = ba.bias_act_bwd.launches - bwd_before
     log(f"B4 gradients (4, 64, 16, 16) f32, 9 activations: first order {w1:.3e}, "
-        f"second order {w2:.3e}")
+        f"second order {w2:.3e}; the backward kernel launched {bwd_launched} times (3 each)")
+    if DEV == "cuda" and bwd_launched != 3 * len(ba.activation_funcs):
+        raise AssertionError(f"B4 gradients launched the backward kernel {bwd_launched} times")
     return errs
+
+
+def b4_case(name, shape, dtype, gen) -> dict:
+    """Both B4 kernels against their plain versions on one input, every
+    activation, bias or none, clamp or none.  The forward against
+    ``bias_act_ref`` in the same type (bars ``_close``); the backward
+    against ``_grad_x_ref``: f32 within B4_1ST of max(1, max|plain|); bf16
+    within BF16_TOL of the plain version evaluated in f32 on the upcast
+    inputs and rounded once, since the bf16 plain version rounds d·gain and
+    the clamp test in bf16 and so flips elements at the clamp's edge."""
+    scale = 30.0 if name == "path" else 2.0
+    if name == "storage offset 1":   # contiguous views whose pointers are not 16-byte aligned
+        x, b, gy = (torch.randn((math.prod(s) + 1,), generator=gen, device=DEV).to(dtype)[1:]
+                    .view(s) for s in (shape, shape[1:2], shape))
+    else:
+        x = (scale * torch.randn(shape, generator=gen, device=DEV)).to(dtype)
+        b = torch.randn((shape[1],), generator=gen, device=DEV).to(dtype)
+        gy = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    up = (lambda t: None if t is None else t.float()) if dtype == torch.bfloat16 \
+        else (lambda t: t)
+    worst = dict(fwd=0.0, bwd=0.0)
+    for act in ba.activation_funcs:
+        for bias in (b, None):
+            for clamp in ((256.0 if name == "path" else 1.0), None):
+                what = f"B4 {name} {act} {dtype} bias {bias is not None} clamp {clamp}"
+                e_f = _close(ba.bias_act_fwd(x, bias, 1, act, None, None, clamp),
+                             ba.bias_act_ref(x, bias, 1, act, None, None, clamp), B4_F32, what)
+                ref = ba._grad_x_ref(up(gy), up(x), up(bias), 1, act, None, None, clamp)
+                e_b = _close(ba.bias_act_bwd(gy, x, bias, 1, act, None, None, clamp),
+                             ref.to(dtype), B4_1ST, what + " backward")
+                worst["fwd"], worst["bwd"] = max(worst["fwd"], e_f), max(worst["bwd"], e_b)
+                if act == "lrelu" and bias is not None and clamp is not None:
+                    worst["path_fwd"], worst["path_bwd"] = e_f, e_b
+    del x, b, gy
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return worst
 
 
 def phase_b3_b4_timings() -> dict:
     rows, L, l_out = B3_PATH
-    x, off, _ = row_shift_case(rows, L, l_out, -40.0, L - l_out + 40.0, torch.float32, seed=14)
-    # The library yardstick: grid_sample over (rows, 1, 1, L), bilinear with
-    # zero padding; output l reads x at l + off, i.e. the normalized
-    # coordinate (2·(l + off) + 1)/L − 1.  The port never calls it.
-    pos = torch.arange(l_out, device=DEV, dtype=torch.float32)[None, :] + off[:, None]
-    grid = torch.stack([(2 * pos + 1) / L - 1, torch.zeros_like(pos)], -1)[:, None]
-    img = x[:, None, None, :]
+    out = {}
+    # The path shape, and its adjoint (the G phase's backward and R1): rows of
+    # l_out shifted by -off back to L.
+    for label, (length, n_out, lo, hi) in (("path", (L, l_out, -40.0, L - l_out + 40.0)),
+                                           ("adjoint", (l_out, L, -(L - l_out) - 40.0, 40.0))):
+        x, off, _ = row_shift_case(rows, length, n_out, lo, hi, torch.float32, seed=14)
+        # The library yardstick: grid_sample over (rows, 1, 1, length), bilinear
+        # with zero padding; output l reads x at l + off, i.e. the normalized
+        # coordinate (2·(l + off) + 1)/length − 1.  The port never calls it.
+        pos = torch.arange(n_out, device=DEV, dtype=torch.float32)[None, :] + off[:, None]
+        grid = torch.stack([(2 * pos + 1) / length - 1, torch.zeros_like(pos)], -1)[:, None]
+        img = x[:, None, None, :]
 
-    def library():
-        return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=False)
+        def library():
+            return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
 
-    lib_err = (library()[:, 0, 0] - rs.row_shift_ref(x, off, l_out)).abs().max().item()
-    nbytes = b3_window_bytes(x, off, l_out)
-    b3 = dict(kernel_ms=cuda_ms(lambda: rs.row_shift_fwd(x, off, l_out)),
-              plain_ms=cuda_ms(lambda: rs.row_shift_ref(x, off, l_out)),
-              library_ms=cuda_ms(library))
-    # Three operations an output (two products and a sum), f32.
-    b3["bound_ms"], b3["bound_by"] = roofline_ms(nbytes, 3.0 * rows * l_out, torch.float32)
-    log("B3 f32 {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
-        "{library_ms:.4f} (grid_sample; it agrees with the plain version to {err:.1e})  "
-        "bound_ms {bound_ms:.4f} ({bound_by}, {mb:.1f} MB for this run's offsets)".format(
-            B3_PATH, err=lib_err, mb=nbytes / 1e6, **b3))
-    del x, grid, img, pos
+        lib_err = (library()[:, 0, 0] - rs.row_shift_ref(x, off, n_out)).abs().max().item()
+        nbytes = b3_window_bytes(x, off, n_out)
+        t = dict(kernel_ms=cuda_ms(lambda: rs.row_shift_fwd(x, off, n_out)),
+                 plain_ms=cuda_ms(lambda: rs.row_shift_ref(x, off, n_out)),
+                 library_ms=cuda_ms(library))
+        # Three operations an output (two products and a sum), f32.
+        t["bound_ms"], t["bound_by"] = roofline_ms(nbytes, 3.0 * rows * n_out, torch.float32)
+        t["of_bound"] = t["bound_ms"] / t["kernel_ms"]
+        b2b = back_to_back_ms(lambda: rs.row_shift_fwd(x, off, n_out))
+        host = host_us(lambda: rs.row_shift_fwd(x, off, n_out))
+        log("B3 f32 {} ({}, {}) -> {}: kernel_ms {kernel_ms:.4f} (back to back {b2b:.4f}; "
+            "the wrapper's host time {host:.1f} us a call)  "
+            "plain_ms {plain_ms:.4f}  "
+            "library_ms {library_ms:.4f} (grid_sample; it agrees with the plain version to "
+            "{err:.1e})  bound_ms {bound_ms:.4f} ({bound_by}, {mb:.1f} MB for this run's "
+            "offsets), {of_bound:.3f} of bound".format(label, rows, length, n_out, err=lib_err,
+                                                       mb=nbytes / 1e6, b2b=b2b, host=host, **t))
+        out["B3" if label == "path" else "B3_adjoint"] = t
+        del x, grid, img, pos
     gen = torch.Generator(device=DEV).manual_seed(15)
     x = (torch.randn(B4_PATH, generator=gen, device=DEV) * 30).bfloat16()
     b = torch.randn((B4_PATH[1],), generator=gen, device=DEV).bfloat16()
+    gy = torch.randn(B4_PATH, generator=gen, device=DEV).bfloat16()
     args = (x, b, 1, "lrelu", None, None, 256.0)
-    nbytes = 2 * x.numel() * x.element_size() + b.numel() * b.element_size()
+    item = x.element_size()
     b4 = dict(kernel_ms=cuda_ms(lambda: ba.bias_act_fwd(*args)),
               plain_ms=cuda_ms(lambda: ba.bias_act_ref(*args)), library_ms=None)
     # Five f32 operations an element: the add, the compare-select, the gain
-    # and the two-sided clamp.
-    b4["bound_ms"], b4["bound_by"] = roofline_ms(nbytes, 5.0 * x.numel(), torch.float32)
-    log("B4 bf16 {} lrelu + bias + clamp: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+    # and the two-sided clamp; x read and y written once, b read once.
+    b4["bound_ms"], b4["bound_by"] = roofline_ms(2 * x.numel() * item + b.numel() * item,
+                                                 5.0 * x.numel(), torch.float32)
+    b4["of_bound"] = b4["bound_ms"] / b4["kernel_ms"]
+    # What PyTorch's own elementwise kernels reach on the same bytes, for
+    # scale beside the bound, logged back to back beside the kernel's own
+    # back-to-back time: a copy (one read, one write) for the forward, a
+    # product of two tensors (two reads, one write) for the backward.
+    dst = torch.empty_like(x)
+    log("B4 bf16 {} lrelu + bias + clamp: kernel_ms {kernel_ms:.4f} (back to back {b2b:.4f}; "
+        "the wrapper's host time {host:.1f} us a call)  "
+        "plain_ms {plain_ms:.4f}  "
         "library_ms none (no one PyTorch call computes clamp(gain·act(x + b)))  bound_ms "
-        "{bound_ms:.4f} ({bound_by})".format(B4_PATH, **b4))
-    return dict(B3=b3, B4=b4)
+        "{bound_ms:.4f} ({bound_by}), {of_bound:.3f} of bound; a copy of the same bytes "
+        "back to back {copy:.4f} ms".format(
+            B4_PATH, b2b=back_to_back_ms(lambda: ba.bias_act_fwd(*args)),
+            host=host_us(lambda: ba.bias_act_fwd(*args)), copy=back_to_back_ms(lambda: dst.copy_(x)), **b4))
+
+    def backward(grad_x):   # as BiasAct.backward runs it: gx, then torch's bias sum
+        gx = grad_x(gy, *args)
+        return gx, ba._sum_to_bias(gx, b, 1)
+
+    bwd = dict(kernel_ms=cuda_ms(lambda: ba.bias_act_bwd(gy, *args)),
+               plain_ms=cuda_ms(lambda: ba._grad_x_ref(gy, *args)), library_ms=None)
+    # gy and x read and gx written once, b read once; nine f32 operations an
+    # element (the add, the slope's select, two products, the activation's
+    # select and product, the gain, |·| ≤ clamp and the mask's select).
+    bwd["bound_ms"], bwd["bound_by"] = roofline_ms(3 * x.numel() * item + b.numel() * item,
+                                                   9.0 * x.numel(), torch.float32)
+    bwd["of_bound"] = bwd["bound_ms"] / bwd["kernel_ms"]
+    log("B4 backward bf16 {} lrelu + bias + clamp: kernel_ms {kernel_ms:.4f} (back to back "
+        "{b2b:.4f}; the wrapper's host time {host:.1f} us a call)  plain_ms {plain_ms:.4f} (gx alone)  library_ms none  bound_ms "
+        "{bound_ms:.4f} ({bound_by}), {of_bound:.3f} of bound; gy·x back to back {mul:.4f} ms; "
+        "the whole backward (gx and gb) {whole:.4f} ms, as the plain formula {whole_plain:.4f} "
+        "ms".format(B4_PATH, b2b=back_to_back_ms(lambda: ba.bias_act_bwd(gy, *args)),
+                    host=host_us(lambda: ba.bias_act_bwd(gy, *args)),
+                    mul=back_to_back_ms(lambda: torch.mul(gy, x, out=dst)),
+                    whole=cuda_ms(lambda: backward(ba.bias_act_bwd)),
+                    whole_plain=cuda_ms(lambda: backward(ba._grad_x_ref)), **bwd))
+    return dict(out, B4=b4, B4bwd=bwd)
 
 
 def sg2_flops(g, d, pipe_canvas, mb, reg: bool) -> float:
@@ -1079,21 +1223,45 @@ def build_sg2(model, device, seed):
 
 
 def sg2_expected_launches(g, d) -> dict:
-    """B3 and B4 launches a main and a reg step must make.  B4: every
-    FullyConnected, SynthesisLayer, ToRGB and Conv2d calls ``bias_act`` once
-    per forward; a step runs G's mapping twice per generated batch (style
-    mixing), the synthesis once, and D on the G phase's fakes, the D phase's
-    fakes and the reals; path length adds one mapping and one synthesis;
-    R1 takes its gradient from the reals' forward.  B3: each ADA warp is two
-    shear passes: 3 warps a step, forward; the G phase's backward takes the
-    adjoint of its 2; R1 adds the adjoint of the reals' 2, and D's update the
-    adjoint of those adjoints (order 2)."""
+    """B3 and B4 launches a main and a reg step must make.
+
+    B4 forward: every FullyConnected, SynthesisLayer, ToRGB and Conv2d calls
+    ``bias_act`` once per forward; a step runs G's mapping twice per
+    generated batch (style mixing), the synthesis once, and D on the G
+    phase's fakes, the D phase's fakes and the reals; path length adds one
+    mapping and one synthesis; R1 takes its gradient from the reals' forward.
+
+    B4 backward: ``BiasAct.backward`` launches it once for each call a
+    backward pass reaches, and autograd runs each node once per pass.  Main:
+    the G phase reaches both mappings and the synthesis, and D's layers on
+    the fakes but not D's mapping network (its input and weights need no
+    gradient there); the D phase reaches every layer of D, on the fakes and on
+    the reals.  Reg adds: path length's gradient (in ws, with a graph)
+    through the synthesis; in the G phase's backward, that pass's forward
+    nodes that its gradient depends on: the styles (the affine
+    FullyConnecteds), the SynthesisLayer outputs (each the input of a
+    modulated conv, whose style gradient reads it) and the mapping upstream
+    of them, not the ToRGB outputs (they only feed the image sum); R1's
+    gradient (in the reals, with a graph) through D but its mapping network.
+    In the double backward, each ``BiasActGrad`` of those two gradients
+    launches the kernel once more for its gradient in gy, where gy needs one:
+    all of R1's, and path length's but the ToRGBs' (their gy is the noise,
+    a constant).
+
+    B3: each ADA warp is two shear passes: 3 warps a step, forward; the G
+    phase's backward takes the adjoint of its 2; R1 adds the adjoint of the
+    reals' 2, and D's update the adjoint of those adjoints (order 2)."""
     kinds = (sg2.FullyConnected, sg2.SynthesisLayer, sg2.ToRGB, sg2.Conv2d)
     n = lambda net: sum(isinstance(m, kinds) for m in net.modules())  # noqa: E731
     n_map, n_syn, n_d = n(g.mapping), n(g.synthesis), n(d)
+    n_dmap = n(d.mapping) if hasattr(d, "mapping") else 0
+    n_rgb = sum(isinstance(m, sg2.ToRGB) for m in g.synthesis.modules())
     main_b4 = 4 * n_map + 2 * n_syn + 3 * n_d
-    return dict(main=dict(B4=main_b4, B3={0: 6, 1: 2}),
-                reg=dict(B4=main_b4 + n_map + n_syn, B3={0: 6, 1: 4, 2: 2}))
+    main_bwd = 2 * n_map + n_syn + (n_d - n_dmap) + 2 * n_d
+    reg_bwd = (main_bwd + n_syn + (n_map + n_syn - n_rgb) + (n_d - n_dmap)
+               + (n_syn - n_rgb) + (n_d - n_dmap))
+    return dict(main=dict(B4=main_b4, B4bwd=main_bwd, B3={0: 6, 1: 2}),
+                reg=dict(B4=main_b4 + n_map + n_syn, B4bwd=reg_bwd, B3={0: 6, 1: 4, 2: 2}))
 
 
 def phase_sg2_train(device, profile: bool) -> dict:
@@ -1140,7 +1308,7 @@ def phase_sg2_train(device, profile: bool) -> dict:
             metrics_all.append((name, {k: v.item() for k, v in m.items()}))
         c1 = dict(counts(), by_order=dict(rs.row_shift_fwd.launches_by_order))
         per_phase[name] = dict(
-            B4=c1["B4"] - c0["B4"], B3=c1["B3"] - c0["B3"],
+            B4=c1["B4"] - c0["B4"], B4bwd=c1["B4bwd"] - c0["B4bwd"], B3=c1["B3"] - c0["B3"],
             B3_by_order={k: v - c0["by_order"].get(k, 0) for k, v in c1["by_order"].items()
                          if v != c0["by_order"].get(k, 0)},
             B1=c1["B1"] - c0["B1"], B2=c1["B2"] - c0["B2"])
@@ -1154,7 +1322,8 @@ def phase_sg2_train(device, profile: bool) -> dict:
         raise AssertionError("a reg step reported no R1 or path-length penalty")
     for name in ("main", "reg"):
         got, exp = per_phase[name], expected[name]
-        want = dict(B4=SG2_STEPS * exp["B4"], B3=SG2_STEPS * sum(exp["B3"].values()),
+        want = dict(B4=SG2_STEPS * exp["B4"], B4bwd=SG2_STEPS * exp["B4bwd"],
+                    B3=SG2_STEPS * sum(exp["B3"].values()),
                     B3_by_order={k: SG2_STEPS * v for k, v in exp["B3"].items()}, B1=0, B2=0)
         if got != want:
             raise AssertionError(f"sg2 {name} launches {got}, expected {want}")
@@ -1168,8 +1337,9 @@ def phase_sg2_train(device, profile: bool) -> dict:
     flops = {k: sg2_flops(g, d, canvas, mb, reg=(k == "reg")) for k in med}
     log(f"sg2 launches per step (asserted, derived from the model): main B3 "
         f"{sum(expected['main']['B3'].values())} {expected['main']['B3']} by order, B4 "
-        f"{expected['main']['B4']}; reg B3 {sum(expected['reg']['B3'].values())} "
-        f"{expected['reg']['B3']}, B4 {expected['reg']['B4']}; B1 and B2 none")
+        f"{expected['main']['B4']}, B4 backward {expected['main']['B4bwd']}; reg B3 "
+        f"{sum(expected['reg']['B3'].values())} {expected['reg']['B3']}, B4 "
+        f"{expected['reg']['B4']}, B4 backward {expected['reg']['B4bwd']}; B1 and B2 none")
     log("sg2 checks: losses, r1_penalty and pl_penalty finite; G, mapping, D and EMA weights "
         f"and w_avg changed; pl_mean {state.pl_mean.item():.5f}")
     for k in ("main", "reg"):
@@ -1222,8 +1392,8 @@ def phase_sg2_train_parity(device) -> None:
             _, m = step(state, {k: v.to(dev) for k, v in batch.items()},
                         torch.Generator(device=dev).manual_seed(0),
                         draws={k: v.to(dev) for k, v in draws.items()})
-            if dev != "cpu" and (counts()["B3"] == before["B3"] or counts()["B4"] == before["B4"]):
-                raise AssertionError("the card's sg2 step did not launch B3 and B4")
+            if dev != "cpu" and any(counts()[k] == before[k] for k in ("B3", "B4", "B4bwd")):
+                raise AssertionError("the card's sg2 step did not launch B3 and both B4 kernels")
             out[label] = (m, state)
         (mc, sc), (mg, sg) = out["cpu"], out["card"]
         tag = "reg" if reg else "main"
@@ -1284,7 +1454,8 @@ def main(argv) -> int:
     b2 = bwd_timings["G"]
     by_path = lambda sampler, train_, sg2_train: dict(  # noqa: E731
         sampler=sampler, train=train_, sg2_train=sg2_train)
-    b3, b4 = sg2_timings["B3"], sg2_timings["B4"]
+    b3, b3a = sg2_timings["B3"], sg2_timings["B3_adjoint"]
+    b4, b4b = sg2_timings["B4"], sg2_timings["B4bwd"]
     b1 = timings["sampler"]
     kernels = [dict(
         name="sagan_attention_fwd", route="cuda",
@@ -1318,13 +1489,27 @@ def main(argv) -> int:
         launches_per_step={k: v["B3_by_order"] for k, v in sg2_run["per_phase"].items()},
         max_abs_err=sg2_err["B3"], ms=b3["kernel_ms"], plain_ms=b3["plain_ms"],
         bound_ms=b3["bound_ms"], bound_by=b3["bound_by"], library_ms=b3["library_ms"],
+        of_bound=b3["of_bound"], adjoint=dict(
+            shape=[B3_PATH[0], B3_PATH[2], B3_PATH[1]], ms=b3a["kernel_ms"],
+            plain_ms=b3a["plain_ms"], bound_ms=b3a["bound_ms"], library_ms=b3a["library_ms"]),
     ), dict(
         name="bias_act", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
         replaces="ic_gan_tpu/ops/pallas/bias_act.py:103",
         launches=sg2_run["launches"]["B4"],
         launches_by_path=by_path(0, 0, sg2_run["launches"]["B4"]),
+        launches_per_step={k: v["B4"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
         max_abs_err=sg2_err["B4"], ms=b4["kernel_ms"], plain_ms=b4["plain_ms"],
         bound_ms=b4["bound_ms"], bound_by=b4["bound_by"], library_ms=None,
+        of_bound=b4["of_bound"],
+    ), dict(
+        name="bias_act_bwd", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
+        replaces="ic_gan_tpu/ops/pallas/bias_act.py:92 (the custom_jvp tangent of _forward)",
+        launches=sg2_run["launches"]["B4bwd"],
+        launches_by_path=by_path(0, 0, sg2_run["launches"]["B4bwd"]),
+        launches_per_step={k: v["B4bwd"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
+        max_abs_err=sg2_err["B4bwd"], ms=b4b["kernel_ms"], plain_ms=b4b["plain_ms"],
+        bound_ms=b4b["bound_ms"], bound_by=b4b["bound_by"], library_ms=None,
+        of_bound=b4b["of_bound"],
     )]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,7 @@ together.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -91,3 +94,19 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(index: int):
+    """A context in which device ``index`` is current: ``torch.cuda.device``
+    when another one is, else one that does nothing (a launch runs on the
+    current device, and switching costs the host time at every launch)."""
+    return _SAME_DEVICE if index == torch.cuda.current_device() else torch.cuda.device(index)
+
+
+def raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream, without building a
+    ``torch.cuda.Stream`` as ``torch.cuda.current_stream()`` does."""
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -31,15 +31,17 @@ def row_shift_ref(x: torch.Tensor, off: torch.Tensor,
                   l_out: Optional[int] = None) -> torch.Tensor:
     """Plain version: two gathers from the zero-padded row and a lerp in
     float32 (or wider), returned in x's type.  x (B, L), off (B,) →
-    (B, l_out)."""
+    (B, l_out).  A row whose shift reads nothing in frame, or whose offset
+    is NaN, comes out zero, as the kernel gives."""
     B, L = x.shape
     l_out = L if l_out is None else l_out
     cd = torch.promote_types(x.dtype, torch.float32)
     off = off.to(torch.promote_types(off.dtype, torch.float32))
     k = torch.floor(off)
-    f = (off - k).to(cd)[:, None]
-    valid = ((k >= -l_out) & (k <= L)).to(cd)[:, None]
-    kc = torch.clamp(k, -l_out, L).to(torch.int64)
+    in_frame = (k >= -l_out) & (k <= L)
+    f = torch.where(in_frame, off - k, 0.0).to(cd)[:, None]
+    valid = in_frame.to(cd)[:, None]
+    kc = torch.where(in_frame, k, 0.0).to(torch.int64)
     xp = torch.nn.functional.pad(x.to(cd), (l_out, l_out + 2))
     idx = l_out + kc[:, None] + torch.arange(l_out, device=x.device)[None, :]
     s0 = torch.gather(xp, 1, idx)
@@ -59,18 +61,21 @@ def row_shift_fwd(x: torch.Tensor, off: torch.Tensor, l_out: Optional[int] = Non
                   order: int = 0) -> torch.Tensor:
     """The shift alone, no autograd.  CPU tensors take ``row_shift_ref``;
     CUDA tensors launch the kernel on the current stream, or raise.
-    ``order`` only labels the launch count."""
-    if x.device.type == "cpu" and off.device.type == "cpu":
+    ``order`` only labels the launch count.  The checks read tensor
+    attributes that build no Python objects: this runs at every launch."""
+    if x.is_cpu and off.is_cpu:
         return row_shift_ref(x, off, l_out)
     if x.dim() != 2 or off.shape != (x.shape[0],):
         raise ValueError(f"row_shift takes x (B, L) and off (B,), got {tuple(x.shape)} "
                          f"and {tuple(off.shape)}")
     B, L = x.shape
     l_out = L if l_out is None else int(l_out)
-    if x.device.type != "cuda" or off.device != x.device:
+    index = x.get_device()
+    if not x.is_cuda or off.get_device() != index:
         raise ValueError(f"x and off must lie on one CUDA device, got {x.device} "
                          f"and {off.device}")
-    if x.dtype not in _DTYPE_CODES or off.dtype != torch.float32:
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None or off.dtype != torch.float32:
         raise ValueError(f"row_shift takes float32 or bfloat16 x and float32 off, got "
                          f"{x.dtype} and {off.dtype}")
     if not (x.is_contiguous() and off.is_contiguous()):
@@ -80,10 +85,9 @@ def row_shift_fwd(x: torch.Tensor, off: torch.Tensor, l_out: Optional[int] = Non
                          f"B {B}, L {L}, l_out {l_out}")
     out = torch.empty((B, l_out), dtype=x.dtype, device=x.device)
     fn = _entry()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), off.data_ptr(), out.data_ptr(), B, L, l_out,
-                 _DTYPE_CODES[x.dtype], stream)
+    with _build.on_device(index):
+        err = fn(x.data_ptr(), off.data_ptr(), out.data_ptr(), B, L, l_out, code,
+                 _build.raw_stream(index))
     if err != 0:
         raise RuntimeError(f"row_shift launch failed: cudaError {err}")
     row_shift_fwd.launches += 1

@@ -25,6 +25,7 @@ from ic_gan_tpu_torch.data.ada import AugmentPipe
 from ic_gan_tpu_torch.models.stylegan2 import Discriminator as SG2Discriminator
 from ic_gan_tpu_torch.models.stylegan2 import Generator as SG2Generator
 from ic_gan_tpu_torch.models.stylegan2 import StyleGAN2Config
+from ic_gan_tpu_torch.ops import bias_act as ba
 from ic_gan_tpu_torch.ops.bias_act import activation_funcs, bias_act, bias_act_fwd, bias_act_ref
 from ic_gan_tpu_torch.ops.row_shift import row_shift, row_shift_fwd, row_shift_ref
 from ic_gan_tpu_torch.train.state import GANTrainState
@@ -343,9 +344,12 @@ def test_bias_act_kernel_matches_plain(shape, dtype):
 
 @pytest.mark.parametrize("act", ACTS)
 def test_bias_act_function_to_second_order(act):
-    """BiasAct (kernel forward, torch backward) against autograd of the
-    plain version: 1e-5 first order, 1e-4 second (test_pallas_bias_act.py:
-    55, 68), each of max(1, max|plain|); the backward launches nothing."""
+    """BiasAct (kernel forward, BiasActGrad's kernel backward) against
+    autograd of the plain version: 1e-5 first order, 1e-4 second
+    (test_pallas_bias_act.py:55, 68), each of max(1, max|plain|).  The
+    forward launches once; the backward kernel three times: the first
+    gradient, then in the second BiasActGrad's own backward (linear in gy)
+    and BiasAct's backward again (gy = 2y depends on x)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn((4, 64, 8, 8), generator=gen, device="cuda")
     b = torch.randn((64,), generator=gen, device="cuda")
@@ -353,11 +357,12 @@ def test_bias_act_function_to_second_order(act):
     out = []
     for fn in (bias_act, bias_act_ref):
         xx, bb = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
-        before = bias_act_fwd.launches
+        before = bias_act_fwd.launches, ba.bias_act_bwd.launches
         y = fn(xx, bb, 1, act, None, None, clamp)
         gx, gb = torch.autograd.grad(y.square().sum(), (xx, bb), create_graph=True)
         (h,) = torch.autograd.grad(gx.square().sum(), xx)
-        assert bias_act_fwd.launches - before == (1 if fn is bias_act else 0)
+        moved = (bias_act_fwd.launches - before[0], ba.bias_act_bwd.launches - before[1])
+        assert moved == ((1, 3) if fn is bias_act else (0, 0))
         out.append((gx.detach(), gb.detach(), h))
     for got, ref, bar in zip(out[0], out[1], (1e-5, 1e-5, 1e-4)):
         assert (got - ref).abs().max().item() <= bar * max(1.0, ref.abs().max().item())
@@ -380,13 +385,131 @@ def test_toy_sg2_steps_launch_b3_and_b4_and_train():
     w0 = g.synthesis.b32.conv1.weight.detach().clone()
     for reg in (False, True):
         b3 = dict(row_shift_fwd.launches_by_order)
-        b4 = bias_act_fwd.launches
+        b4 = bias_act_fwd.launches, ba.bias_act_bwd.launches
         state, metrics = make_sg2_train_step(tcfg, cfg.z_dim, do_pl=reg, do_r1=reg,
                                              augment_fn=pipe)(state, batch, gen)
         torch.cuda.synchronize()
         orders = {k: v - b3.get(k, 0) for k, v in row_shift_fwd.launches_by_order.items()
                   if v != b3.get(k, 0)}
         assert orders == ({0: 6, 1: 4, 2: 2} if reg else {0: 6, 1: 2})
-        assert bias_act_fwd.launches > b4
+        assert bias_act_fwd.launches > b4[0] and ba.bias_act_bwd.launches > b4[1]
         assert all(torch.isfinite(v).all() for v in metrics.values())
     assert state.pl_mean.item() != 0.0 and not torch.equal(g.synthesis.b32.conv1.weight, w0)
+
+
+# --- B3 and B4 after their redesign: the vector paths' edges ------------------------
+
+def _storage_offset_view(shape, dtype, gen):
+    """A contiguous view one element into its storage: not 16-byte aligned."""
+    n = 1
+    for d in shape:
+        n *= d
+    base = torch.randn((n + 1,), generator=gen, device="cuda").to(dtype)
+    return base[1:].view(shape)
+
+
+# (name, x shape).  With a bias: FC with C 512 takes the kernel's row layout
+# (the bias read as a vector); odd C over 4x4 planes (16 elements, a whole
+# number of vectors) the plane layout; 3x3 and 5x5 planes, an FC layer of odd
+# C and unaligned pointers its scalar path.  With no bias every aligned case
+# takes the plane layout.  The empty tensor launches nothing.
+B4_EDGES = [("fc C512", (16, 512)), ("3x3 planes", (4, 24, 3, 3)),
+            ("5x5 planes", (4, 24, 5, 5)), ("odd C", (3, 7, 4, 4)), ("odd C fc", (5, 9)),
+            ("storage offset 1", (2, 16, 4, 4)), ("empty", (0, 16, 4, 4))]
+
+
+def _b4_bar_ok(got, ref_fn, x, gy_or_none, b, act, clamp):
+    """f32: max|Δ| ≤ bar·max(1, max|plain|) (forward 1e-6, backward 1e-5);
+    bf16: atol and rtol 2e-2 against the plain version evaluated in f32 on
+    the upcast inputs and rounded once (the bf16 plain version rounds after
+    every step, so elements at the clamp's edge may flip against it)."""
+    if x.dtype == torch.float32:
+        ref = ref_fn(x, gy_or_none, b)
+        bar = (1e-6 if gy_or_none is None else 1e-5) * max(1.0, ref.abs().max().item()
+                                                          if ref.numel() else 1.0)
+        return got.dtype == ref.dtype and ((got - ref).abs().max().item() if ref.numel()
+                                           else 0.0) <= bar
+    up = lambda t: None if t is None else t.float()  # noqa: E731
+    ref = ref_fn(up(x), up(gy_or_none), up(b)).bfloat16().float()
+    return got.dtype == torch.bfloat16 and bool(
+        ((got.float() - ref).abs() <= 2e-2 + 2e-2 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("name,shape", B4_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_act_kernels_at_vector_path_edges(name, shape, dtype):
+    """Both B4 kernels against their plain versions at the edges of the
+    vector path, every activation, bias or none, clamp or none; each launch
+    counted (none for the empty tensor)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    if name == "storage offset 1":
+        x = _storage_offset_view(shape, dtype, gen)
+        b = _storage_offset_view((shape[1],), dtype, gen)
+        assert x.data_ptr() % 16 and b.data_ptr() % 16 and x.is_contiguous()
+    else:
+        x = (2 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+        b = torch.randn((shape[1],), generator=gen, device="cuda").to(dtype)
+    gy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    launches = 0 if x.numel() == 0 else 1
+    for act in ACTS:
+        for bias in (b, None):
+            for clamp in (None, 1.0):
+                before = bias_act_fwd.launches, ba.bias_act_bwd.launches
+                y = bias_act_fwd(x, bias, 1, act, None, None, clamp)
+                gx = ba.bias_act_bwd(gy, x, bias, 1, act, None, None, clamp)
+                torch.cuda.synchronize()
+                assert (bias_act_fwd.launches - before[0],
+                        ba.bias_act_bwd.launches - before[1]) == (launches, launches)
+                assert y.shape == gx.shape == x.shape
+                assert _b4_bar_ok(y, lambda x_, _, b_: bias_act_ref(
+                    x_, b_, 1, act, None, None, clamp), x, None, bias, act, clamp), (act, clamp)
+                assert _b4_bar_ok(gx, lambda x_, g_, b_: ba._grad_x_ref(
+                    g_, x_, b_, 1, act, None, None, clamp), x, gy, bias, act, clamp), (act, clamp)
+
+
+def test_bias_act_bwd_is_deterministic_and_counters_reset():
+    """Two runs of the backward (kernel gx, torch's bias sum gb) give the
+    same bits: no atomics.  ``reset_launches`` zeroes both counters."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = (30 * torch.randn((4, 64, 64, 64), generator=gen, device="cuda")).bfloat16()
+    b = torch.randn((64,), generator=gen, device="cuda").bfloat16().requires_grad_(True)
+    gy = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+    runs = []
+    for _ in range(2):
+        xx = x.clone().requires_grad_(True)
+        runs.append(torch.autograd.grad(bias_act(xx, b, 1, "lrelu", clamp=256.0), (xx, b), gy))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    assert ba.bias_act_bwd.launches > 0
+    ba.reset_launches()
+    assert bias_act_fwd.launches == ba.bias_act_bwd.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,L,l_out", [
+    (512, 144, 70),        # l_out % 4 != 0: the scalar path's stores
+    (512, 146, 72),        # L % 4 != 0: the scalar path's loads
+    (38016, 792, 1584),    # the adjoint shape of the StyleGAN2 path
+    (640, 1584, 792),      # the path's row length
+])
+def test_row_shift_kernel_shift_residues_and_frame(rows, L, l_out, dtype):
+    """B3 against its plain version with shifts of every residue mod 8 (so
+    mod 4), fractional and integer, rows partly and wholly out of frame at
+    both ends, and NaN offsets (zero rows on both sides); bars as above."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((rows, L), generator=gen, device="cuda").to(dtype)
+    off = (torch.rand((rows,), generator=gen, device="cuda") * (L + l_out + 40)
+           - (l_out + 20))
+    off[:64] = torch.arange(64, device="cuda") - 32 + torch.where(
+        torch.arange(64, device="cuda") < 32, 0.0, 0.375)
+    off[64:68] = torch.tensor([float("nan"), -(l_out + 1.5), L + 0.5, float(L)], device="cuda")
+    before = row_shift_fwd.launches
+    got = row_shift_fwd(x, off, l_out)
+    torch.cuda.synchronize()
+    assert row_shift_fwd.launches == before + 1
+    ref = row_shift_ref(x, off, l_out)
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+    assert not got[64:66].any() and torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 1e-6
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)

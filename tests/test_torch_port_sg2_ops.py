@@ -124,6 +124,24 @@ def test_bias_act_on_cpu_launches_nothing_and_refuses_other_devices():
         tba.bias_act_fwd(torch.empty(2, 3, device="meta"), None)
 
 
+@pytest.mark.parametrize("call", [
+    lambda m, c: tba.bias_act_bwd(m((2, 3)), m((2, 3)), m((3,))),
+    lambda m, c: tba.bias_act_bwd(c((2, 3)), m((2, 3)), None),
+    lambda m, c: tba.bias_act_fwd(c((2, 3)), m((3,))),
+    lambda m, c: trs.row_shift_fwd(m((2, 8)), m((2,)), 4),
+    lambda m, c: trs.row_shift_fwd(c((2, 8)), m((2,)), 4),
+], ids=["bwd meta", "bwd cpu gy", "fwd meta bias", "row shift meta", "row shift meta off"])
+def test_kernel_wrappers_refuse_what_is_neither_cpu_nor_cuda(call):
+    """A wrapper takes its plain version only when every tensor lies on the
+    CPU; anything else that is not on one CUDA device raises, and launches
+    nothing."""
+    before = (tba.bias_act_fwd.launches, tba.bias_act_bwd.launches, trs.row_shift_fwd.launches)
+    with pytest.raises(ValueError):
+        call(lambda s: torch.empty(s, device="meta"), torch.zeros)
+    assert (tba.bias_act_fwd.launches, tba.bias_act_bwd.launches,
+            trs.row_shift_fwd.launches) == before
+
+
 # --- (b) row_shift (B3) ----------------------------------------------------------
 
 def _rows(B=7, L=40, scale=90.0, seed=0):
