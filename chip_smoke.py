@@ -29,8 +29,9 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    and images per second;
 8. train-step parity: one step of a res-64 ch-16 G and D in f32 from the
    same weights and z on the card and on the CPU;
-9. kernels B3 (ADA row shift) and B4 (fused bias-activation: its forward
-   and its backward kernel) against their plain versions on the card: B4 at
+9. kernels B3 (ADA row shift; NaN rows for non-finite offsets) and B4
+   (fused bias-activation: its forward and its backward kernel) against
+   their plain versions on the card: B4 at
    the path shape and at the edges of its vector path, nine activations,
    bias or none, clamp or none; both to second order; f32 and bf16; then
    their timings at the StyleGAN2 path's shapes (B3 also at its adjoint's,
@@ -43,7 +44,15 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    model; then ms per step, s/kimg, img/s, TFLOP/s and peak memory;
 11. StyleGAN2 train-step parity: a main and a reg step of a toy model in f32
    on the card (B3 and B4) and on the CPU (their plain versions), from the
-   same weights and draws.
+   same weights and draws;
+12. the StyleGAN2-ADA training loop: ``SG2Trainer.run`` for 7 steps at phase
+   10's model and microbatch from an in-memory dataset drawn on the card,
+   G and D regularized every 2 and 3 steps, so that every variant runs; B3
+   and both B4 kernels launch in each, the main and pl+r1 steps as often as
+   phase 10 derives; ADA's p, the tick records (s/kimg), the snapshots (size,
+   save and load time), a bit-for-bit reload into a fresh trainer and one
+   more step from it against the live one; then ``make_sampler`` over the
+   EMA G with ``truncation_psi`` 0.7 and constant noise against direct calls.
 
 ``--profile`` adds device-time breakdowns of one sampler batch, one BigGAN
 train step and one StyleGAN2 main and reg step, with the kernels launched
@@ -54,10 +63,12 @@ JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -68,10 +79,12 @@ import torch.nn.functional as F
 from torch.nn.utils import skip_init
 
 from ic_gan_tpu_torch.data.ada import AugmentPipe
+from ic_gan_tpu_torch.data.datasets import Batch
+from ic_gan_tpu_torch.io.checkpoint import load_checkpoint
 from ic_gan_tpu_torch.io.deploy import cast_params, fold_spectral_norm, make_sampler
 from ic_gan_tpu_torch.models import stylegan2 as sg2
 from ic_gan_tpu_torch.models.biggan import BigGANConfig, Discriminator, Generator
-from ic_gan_tpu_torch.models.layers import CrossReplicaBatchNorm, SelfAttention
+from ic_gan_tpu_torch.models.layers import SelfAttention
 from ic_gan_tpu_torch.ops import _build
 from ic_gan_tpu_torch.ops import bias_act as ba
 from ic_gan_tpu_torch.ops import row_shift as rs
@@ -83,6 +96,7 @@ from ic_gan_tpu_torch.ops.attention import (
 )
 from ic_gan_tpu_torch.train.state import GANTrainState
 from ic_gan_tpu_torch.train.step import TrainConfig, make_train_step
+from ic_gan_tpu_torch.train import stylegan2_trainer as sg2_loop
 from ic_gan_tpu_torch.train.stylegan2_step import (
     SG2TrainConfig,
     SG2TrainState,
@@ -207,6 +221,16 @@ SG2_PARITY_MODEL = dict(img_resolution=32, z_dim=32, c_dim=0, h_dim=64, w_dim=32
                         channel_base=1024, channel_max=64, num_fp16_res=0,
                         num_mapping_layers=2)
 SG2_PARITY_MB = 4
+# The StyleGAN2-ADA training loop at phase 10's model and microbatch: the
+# regularization intervals 2 and 3 and 7 steps run every variant (0 pl+r1,
+# 1 main, 2 pl, 3 r1, ...); ADA's p moves every 2 steps from 0.5 by 32/500 of
+# a unit; a tick every 32 images (2 steps), a snapshot every tick.  The
+# dataset is drawn on the card from a seed (no h5py on the card's machine).
+SG2_LOOP_STEPS = 7
+SG2_LOOP_TRAIN = dict(G_reg_interval=2, D_reg_interval=3, ada_interval=2, ada_kimg=0.5)
+SG2_LOOP_TICK_KIMG = 0.032
+SG2_LOOP_IMAGES = 64
+SG2_LOOP_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_sg2_loop")
 DEV = "cuda"         # the kernel phases' device (the CPU only to rehearse them)
 
 
@@ -932,11 +956,14 @@ def phase_train_parity(device) -> None:
 
 def _close(got, ref, f32_bar, what):
     """Kernel output against the plain version: f32 max|Δ| ≤ bar·max(1,
-    max|plain|), bf16 within BF16_TOL.  Returns max|Δ|."""
+    max|plain|), bf16 within BF16_TOL; a NaN on both sides at one place
+    counts as equal, on one side only as out of bar.  Returns max|Δ|."""
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise AssertionError(f"{what}: {tuple(got.shape)}/{got.dtype} vs "
                              f"{tuple(ref.shape)}/{ref.dtype}")
     g, r = got.float(), ref.float()
+    both_nan = torch.isnan(g) & torch.isnan(r)
+    g, r = g.masked_fill(both_nan, 0.0), r.masked_fill(both_nan, 0.0)
     d = (g - r).abs()
     err = d.max().item() if d.numel() else 0.0
     if got.dtype == torch.bfloat16:
@@ -978,11 +1005,16 @@ def phase_b3_b4() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             x, off, n_out = row_shift_case(r, length, lo_, a, b, dtype, seed=11,
                                            integer=(name == "integer"))
+            if name == "ragged":   # non-finite offsets: NaN rows on both sides
+                off[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
             got = rs.row_shift_fwd(x, off, n_out)
             sync()
             err = _close(got, rs.row_shift_ref(x, off, n_out), B3_F32, f"B3 {name} {dtype}")
             if name == "integer" and dtype == torch.float32 and err != 0.0:
                 raise AssertionError(f"B3 integer shifts: max|Δ| {err}, expected exact")
+            if name == "ragged" and not (torch.isnan(got[:3]).all()
+                                         and not torch.isnan(got[3:]).any()):
+                raise AssertionError("B3: NaN rows where the offset is not finite, and only there")
             log(f"B3 {name} ({r}, {length}) -> {lo_} {str(dtype)[6:]}: max|kernel - plain| "
                 f"{err:.3e}")
             if name == "path" and dtype == torch.float32:
@@ -1427,6 +1459,255 @@ def phase_sg2_train_parity(device) -> None:
         + " (bars: losses 1e-4, grads 1e-2 of the tensor's max, w_avg/pl_mean 1e-3)")
 
 
+class CardDataset:
+    """``SG2_LOOP_IMAGES`` images in [-1, 1] and unit instance features drawn
+    from a seed on the card, behind the two methods the trainer calls on an
+    ``HDF5Dataset`` (``sample_batch``, ``sample_conditioning_instance_balance``);
+    indices from a CPU generator."""
+
+    def __init__(self, res, h_dim, device, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.images = torch.rand((SG2_LOOP_IMAGES, 3, res, res), generator=gen,
+                                 device=device) * 2 - 1
+        self.feats = F.normalize(torch.randn((SG2_LOOP_IMAGES, h_dim), generator=gen,
+                                             device=device), dim=1)
+        self.index = torch.Generator().manual_seed(seed)
+
+    def _draw(self, n):
+        return torch.randint(0, SG2_LOOP_IMAGES, (n,), generator=self.index).to(
+            self.images.device)
+
+    def sample_batch(self, n):
+        i = self._draw(n)
+        return Batch(self.images[i], None, self.feats[self._draw(n)], None)
+
+    def sample_conditioning_instance_balance(self, n):
+        return None, self.feats[self._draw(n)]
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor and count of an SG2TrainState by a flat name."""
+    out = {}
+    for key in ("g", "d", "g_ema", "g_opt", "d_opt"):
+        sd = getattr(state, key).state_dict()
+        if key.endswith("_opt"):
+            sd = {f"{i}.{k}": t for i, st in sd["state"].items() for k, t in st.items()}
+        out.update({f"{key}.{k}": t for k, t in sd.items()})
+    for key in ("pl_mean", "ada_p", "ada_sign_sum", "ada_count", "step", "cur_nimg"):
+        out[key] = getattr(state, key)
+    return out
+
+
+def phase_sg2_loop(device) -> dict:
+    """The StyleGAN2-ADA training loop (``SG2Trainer.run``) at phase 10's
+    model: every variant launches B3 and both B4 kernels, main and pl+r1 as
+    many times as phase 10 derives; the tick records; the snapshot reloads
+    bit for bit and the next step from it agrees with the live one; the EMA
+    G behind ``make_sampler`` with truncation and constant noise."""
+    shutil.rmtree(SG2_LOOP_DIR, ignore_errors=True)
+    cfg = sg2.StyleGAN2Config(**SG2_MODEL)
+    tcfg = SG2TrainConfig(**SG2_LOOP_TRAIN)
+    lcfg = sg2_loop.SG2LoopConfig(
+        experiment_name="sg2_loop", run_dir=SG2_LOOP_DIR, batch_size=SG2_MB,
+        kimg_per_tick=SG2_LOOP_TICK_KIMG, snapshot_ticks=1, augment_spec="bgc",
+        augment_p_init=SG2_P, seed=31)
+    dataset = CardDataset(cfg.img_resolution, cfg.h_dim, device, seed=32)
+    t0 = time.perf_counter()
+    tr = sg2_loop.SG2Trainer(cfg, tcfg, lcfg, dataset, device=device)
+    expected = sg2_expected_launches(tr.g, tr.d)
+    sync()
+    log(f"sg2 loop: SG2Trainer at {cfg.img_resolution}^2 (h_dim {cfg.h_dim}, channel_base "
+        f"{cfg.channel_base}), microbatch {SG2_MB}, 'bgc' ADA from p {SG2_P}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    per_step, updates, saves = [], [], []
+
+    def counting(key, fn):
+        def step(state, batch, generator):
+            c0 = dict(counts(), by_order=dict(rs.row_shift_fwd.launches_by_order))
+            out = fn(state, batch, generator)
+            c1 = dict(counts(), by_order=dict(rs.row_shift_fwd.launches_by_order))
+            per_step.append((key, {k: c1[k] - c0[k] for k in ("B1", "B2", "B3", "B4", "B4bwd")},
+                             {k: v - c0["by_order"].get(k, 0) for k, v in c1["by_order"].items()
+                              if v != c0["by_order"].get(k, 0)}))
+            return out
+        return step
+
+    real_update, real_save = sg2_loop.ada_update, sg2_loop.save_checkpoint
+
+    def ada_update(state, cfg_, batch_size):
+        before = (state.ada_p.item(), state.ada_sign_sum.item(), state.ada_count.item())
+        state = real_update(state, cfg_, batch_size)
+        updates.append((state.step, *before, state.ada_p.item()))
+        return state
+
+    def save_checkpoint(*args, **kw):
+        sync()
+        t1 = time.perf_counter()
+        path = real_save(*args, **kw)
+        saves.append(time.perf_counter() - t1)
+        return path
+
+    tr.steps = {k: counting(k, fn) for k, fn in tr.steps.items()}
+    sg2_loop.ada_update, sg2_loop.save_checkpoint = ada_update, save_checkpoint
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.run(max_steps=SG2_LOOP_STEPS)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        sg2_loop.ada_update, sg2_loop.save_checkpoint = real_update, real_save
+
+    # Every variant ran and launched B3 and both B4 kernels; main and pl+r1
+    # exactly as phase 10 derives.
+    names = {(False, False): "main", (True, False): "main+pl", (False, True): "main+r1",
+             (True, True): "main+pl+r1"}
+    by_variant = {}
+    for key, got, by_order in per_step:
+        by_variant.setdefault(names[key], (got, by_order))
+        if min(got["B3"], got["B4"], got["B4bwd"]) == 0 or got["B1"] or got["B2"]:
+            raise AssertionError(f"sg2 loop {names[key]} step launched {got}")
+    if [names[k] for k, _, _ in per_step] != ["main+pl+r1", "main", "main+pl", "main+r1",
+                                              "main+pl", "main", "main+pl+r1"]:
+        raise AssertionError(f"sg2 loop variants {[names[k] for k, _, _ in per_step]}")
+    for variant, exp in (("main", expected["main"]), ("main+pl+r1", expected["reg"])):
+        got, by_order = by_variant[variant]
+        want = (dict(B1=0, B2=0, B3=sum(exp["B3"].values()), B4=exp["B4"], B4bwd=exp["B4bwd"]),
+                exp["B3"])
+        if (got, by_order) != want:
+            raise AssertionError(f"sg2 loop {variant} launches {got} {by_order}, phase 10 "
+                                 f"derives {want}")
+    # ADA's controller: p moved by sign(mean sign - target)·32/500 every 2 steps.
+    adjust = SG2_MB * tcfg.ada_interval / (tcfg.ada_kimg * 1000)
+    for step, p0, sign_sum, count, p1 in updates:
+        mean = sign_sum / max(count, 1.0)
+        want = max(p0 + math.copysign(adjust, mean - tcfg.ada_target)
+                   if mean != tcfg.ada_target else p0, 0.0)
+        if abs(p1 - want) > 1e-6:
+            raise AssertionError(f"ada_update at step {step}: p {p0} -> {p1}, expected {want}")
+    if [u[0] for u in updates] != [2, 4, 6]:
+        raise AssertionError(f"ada_update ran after steps {[u[0] for u in updates]}")
+    with open(os.path.join(tr.run_dir, "stats.jsonl")) as f:
+        ticks = [json.loads(line) for line in f]
+    p_at = {u[0]: u[4] for u in updates}
+    want_p = [p_at[2], p_at[4], p_at[6], p_at[6]]
+    if ([r["kimg"] for r in ticks] != [SG2_MB * k / 1000 for k in (2, 4, 6, 7)]
+            or not all(math.isfinite(r["sec_per_kimg"]) and r["sec_per_kimg"] > 0 for r in ticks)
+            or any(abs(r["augment_p"] - p) > 1e-6 for r, p in zip(ticks, want_p))
+            or not all(math.isfinite(v) for r in ticks for v in r.values())):
+        raise AssertionError(f"sg2 loop tick records {ticks}")
+    if len(saves) != 4:
+        raise AssertionError(f"sg2 loop saved {len(saves)} snapshots, expected 4 (one a tick)")
+
+    # The snapshot into a fresh trainer (other seed), bit for bit.
+    snap = os.path.join(tr.run_dir, "network-snapshot")
+    size = sum(os.path.getsize(os.path.join(snap, n)) for n in os.listdir(snap))
+    fresh = sg2_loop.SG2Trainer(cfg, tcfg, dataclasses.replace(
+        lcfg, seed=33, experiment_name="sg2_loop_fresh"), dataset, device=device)
+    sync()
+    t1 = time.perf_counter()
+    load_checkpoint(tr.run_dir, "network-snapshot", fresh.state)
+    sync()
+    load_s = time.perf_counter() - t1
+    live, back = _state_tensors(tr.state), _state_tensors(fresh.state)
+    diff = [k for k, v in live.items()
+            if not (torch.equal(v, back[k]) if torch.is_tensor(v) else v == back[k])]
+    if set(live) != set(back) or diff:
+        raise AssertionError(f"sg2 snapshot reload differs in {diff[:5]}")
+    # One more step from each, same batch and the live run's (seed, step)
+    # generator: phase 8's bars, losses 1e-4 relative, state (w_avg,
+    # pl_mean, ADA's sums) 1e-3 of its largest entry.  The updated weights
+    # are logged, not held: two steps from one state need not agree bit for
+    # bit on the card, and Adam turns a rounding difference in a gradient
+    # near 0 into a step difference of the order of the learning rate (with
+    # cuDNN's default algorithms the losses were 1.2e-4 apart, relative;
+    # with its deterministic ones, used here, the losses agreed and a bias
+    # of D, all its entries near 0, moved by up to 1.1e-2 of its largest
+    # entry).  The reload itself is held bit for bit above.
+    step_no = tr.state.step
+    key = (step_no % tcfg.G_reg_interval == 0, step_no % tcfg.D_reg_interval == 0)
+    batch = tr.make_batch()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, m_live = tr.steps[key](tr.state, batch, tr.step_generator(step_no))
+        _, m_back = fresh.steps[key](fresh.state, batch, tr.step_generator(step_no))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    pairs = {k: (m_live[k].item(), m_back[k].item()) for k in m_live}
+    worst_loss = max(abs(a - b) / max(abs(a), 1e-6) for a, b in pairs.values())
+    if worst_loss > 1e-4:
+        raise AssertionError(f"sg2 step after reload: losses differ by {worst_loss:.3e}: {pairs}")
+    live, back = _state_tensors(tr.state), _state_tensors(fresh.state)
+    state_keys = ("g.mapping.w_avg", "g_ema.mapping.w_avg", "pl_mean", "ada_p",
+                  "ada_sign_sum", "ada_count")
+    worst = dict(state=0.0, weights=0.0)
+    for k in [k for k in live if k.startswith(("g.", "d.", "g_ema.")) or k in state_keys]:
+        a, b = live[k].float(), back[k].float()
+        err = (a - b).abs().max().item()
+        scale = max(a.abs().max().item(), 1e-12)
+        kind = "state" if k in state_keys else "weights"
+        if kind == "state" and err > PARITY_STATE_REL * scale:
+            raise AssertionError(f"sg2 step after reload: {k} max|Δ| {err:.3e} ({scale:.3e})")
+        worst[kind] = max(worst[kind], err / scale)
+    del fresh
+
+    # The EMA G behind the sampler: a request of 20 in batches of 16 (the
+    # tail padded) against direct calls on the same inputs.
+    g_ema = tr.state.g_ema
+    gen = torch.Generator(device=device).manual_seed(34)
+    z = torch.randn((20, cfg.z_dim), generator=gen, device=device)
+    h = dataset.sample_conditioning_instance_balance(20)[1]
+    sampler = make_sampler(g_ema, batch_size=SG2_MB, device=device, truncation_psi=0.7,
+                           noise_mode="const")
+    reset_counts()
+    got = sampler(z, None, h, device_output=True)
+    sampler_b4 = counts()["B4"]
+    with torch.no_grad():
+        direct = torch.cat([g_ema(z[lo:lo + n], None, h[lo:lo + n], truncation_psi=0.7,
+                                  noise_mode="const") for lo, n in ((0, 16), (16, 4))])
+    sync()
+    direct = direct.permute(0, 2, 3, 1)
+    if got.shape != (20, cfg.img_resolution, cfg.img_resolution, 3) or sampler_b4 == 0:
+        raise AssertionError(f"sg2 sampler gave {tuple(got.shape)}, B4 launches {sampler_b4}")
+    # bf16 in the top resolutions: the padded tail's batch of 16 may take
+    # other convolution algorithms than the direct batch of 4.
+    dev_ = (got - direct).abs()
+    if not bool((dev_ <= BF16_TOL["atol"] + BF16_TOL["rtol"] * direct.abs()).all()):
+        raise AssertionError(f"sg2 sampler: max|sampler - direct| {dev_.max().item():.3e}")
+    same_batch = torch.equal(got[:16], direct[:16])
+    shutil.rmtree(SG2_LOOP_DIR, ignore_errors=True)
+
+    # A tick's time holds the snapshot saved at the tick before it (snapshot_ticks
+    # 1): the loop's own s/kimg is that less the save.
+    net = [(r["sec_per_kimg"] * (r["kimg"] - prev["kimg"]) - save) / (r["kimg"] - prev["kimg"])
+           for prev, r, save in zip(ticks, ticks[1:], saves)]
+    log("sg2 loop variants and launches per step: " + "; ".join(
+        f"{v} B3 {g['B3']} {o} B4 {g['B4']} B4 backward {g['B4bwd']}"
+        for v, (g, o) in by_variant.items()) + " (main and main+pl+r1 as phase 10 derives)")
+    log(f"sg2 loop {SG2_LOOP_STEPS} steps in {wall:.2f} s; ticks (kimg, s/kimg, augment_p): "
+        + ", ".join(f"({r['kimg']}, {r['sec_per_kimg']:.3f}, {r['augment_p']:.4f})"
+                    for r in ticks)
+        + f"; less the snapshot saved in ticks 1-3: "
+        + ", ".join(f"{v:.3f}" for v in net) + " s/kimg"
+        + "; ada_update after steps 2, 4, 6 as its rule gives")
+    log(f"sg2 loop snapshot: {size / 2 ** 20:.1f} MiB; save {1e3 * statistics.median(saves):.0f} "
+        f"ms (median of {len(saves)}), load {1e3 * load_s:.0f} ms; reload bit for bit in "
+        f"{len(live)} tensors and counts; the next step from it against the live one's "
+        f"(cuDNN deterministic): worst relative |Δ| losses {worst_loss:.3e}, state "
+        f"{worst['state']:.3e} (bars 1e-4, {PARITY_STATE_REL:g}); weights after Adam "
+        f"{worst['weights']:.3e} of a tensor's largest entry (logged)")
+    log(f"sg2 sampler: make_sampler(g_ema, batch_size {SG2_MB}, truncation_psi 0.7, "
+        f"noise_mode const) for 20 images against direct calls: max|Δ| full batch "
+        f"{dev_[:16].max().item():.3e} (bit for bit: {same_batch}), padded tail "
+        f"{dev_[16:].max().item():.3e}; bar atol {BF16_TOL['atol']} + rtol {BF16_TOL['rtol']}")
+    return dict(launches=launches, by_variant=by_variant, ticks=ticks, net_s_per_kimg=net,
+                snapshot_mib=size / 2 ** 20, save_ms=1e3 * statistics.median(saves),
+                load_ms=1e3 * load_s)
+
+
 def main(argv) -> int:
     card = phase_env()
     device = torch.device("cuda", 0)
@@ -1451,9 +1732,12 @@ def main(argv) -> int:
     sg2_run = phase_sg2_train(device, "--profile" in argv)
     torch.cuda.empty_cache()
     phase_sg2_train_parity(device)
+    torch.cuda.empty_cache()
+    loop = phase_sg2_loop(device)
     b2 = bwd_timings["G"]
-    by_path = lambda sampler, train_, sg2_train: dict(  # noqa: E731
-        sampler=sampler, train=train_, sg2_train=sg2_train)
+    by_path = lambda sampler, train_, sg2_train, sg2_loop_=0: dict(  # noqa: E731
+        sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_)
+    per_loop_step = lambda k: {v: g[k] for v, (g, _) in loop["by_variant"].items()}  # noqa: E731
     b3, b3a = sg2_timings["B3"], sg2_timings["B3_adjoint"]
     b4, b4b = sg2_timings["B4"], sg2_timings["B4bwd"]
     b1 = timings["sampler"]
@@ -1484,9 +1768,11 @@ def main(argv) -> int:
     ), dict(
         name="row_shift", route="cuda", source="ic_gan_tpu_torch/csrc/row_shift.cu",
         replaces="ic_gan_tpu/ops/pallas/row_shift.py:104",
-        launches=sg2_run["launches"]["B3"],
-        launches_by_path=by_path(0, 0, sg2_run["launches"]["B3"]),
-        launches_per_step={k: v["B3_by_order"] for k, v in sg2_run["per_phase"].items()},
+        launches=sg2_run["launches"]["B3"] + loop["launches"]["B3"],
+        launches_by_path=by_path(0, 0, sg2_run["launches"]["B3"], loop["launches"]["B3"]),
+        launches_per_step={k: {o: n // SG2_STEPS for o, n in v["B3_by_order"].items()}
+                           for k, v in sg2_run["per_phase"].items()},
+        launches_per_loop_step={v: o for v, (_, o) in loop["by_variant"].items()},
         max_abs_err=sg2_err["B3"], ms=b3["kernel_ms"], plain_ms=b3["plain_ms"],
         bound_ms=b3["bound_ms"], bound_by=b3["bound_by"], library_ms=b3["library_ms"],
         of_bound=b3["of_bound"], adjoint=dict(
@@ -1495,18 +1781,20 @@ def main(argv) -> int:
     ), dict(
         name="bias_act", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
         replaces="ic_gan_tpu/ops/pallas/bias_act.py:103",
-        launches=sg2_run["launches"]["B4"],
-        launches_by_path=by_path(0, 0, sg2_run["launches"]["B4"]),
+        launches=sg2_run["launches"]["B4"] + loop["launches"]["B4"],
+        launches_by_path=by_path(0, 0, sg2_run["launches"]["B4"], loop["launches"]["B4"]),
         launches_per_step={k: v["B4"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
+        launches_per_loop_step=per_loop_step("B4"),
         max_abs_err=sg2_err["B4"], ms=b4["kernel_ms"], plain_ms=b4["plain_ms"],
         bound_ms=b4["bound_ms"], bound_by=b4["bound_by"], library_ms=None,
         of_bound=b4["of_bound"],
     ), dict(
         name="bias_act_bwd", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
         replaces="ic_gan_tpu/ops/pallas/bias_act.py:92 (the custom_jvp tangent of _forward)",
-        launches=sg2_run["launches"]["B4bwd"],
-        launches_by_path=by_path(0, 0, sg2_run["launches"]["B4bwd"]),
+        launches=sg2_run["launches"]["B4bwd"] + loop["launches"]["B4bwd"],
+        launches_by_path=by_path(0, 0, sg2_run["launches"]["B4bwd"], loop["launches"]["B4bwd"]),
         launches_per_step={k: v["B4bwd"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
+        launches_per_loop_step=per_loop_step("B4bwd"),
         max_abs_err=sg2_err["B4bwd"], ms=b4b["kernel_ms"], plain_ms=b4b["plain_ms"],
         bound_ms=b4b["bound_ms"], bound_by=b4b["bound_by"], library_ms=None,
         of_bound=b4b["of_bound"],

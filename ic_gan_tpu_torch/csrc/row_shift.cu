@@ -9,9 +9,10 @@
 // window [k, k + l_out] is read directly, the host padding becomes a bounds
 // check, and the lerp runs in f32 before one rounding to the input's type.
 // One kernel serves the forward (l_out < L) and its adjoint, the same shift
-// with -off from a row of l_out to one of L (l_out > L).  Rows whose shift
-// reads nothing in frame come out zero, as the TPU kernel's sentinel clamp
-// gives.
+// with -off from a row of l_out to one of L (l_out > L).  Rows whose finite
+// shift reads nothing in frame come out zero, as the TPU kernel's sentinel
+// clamp gives; rows whose offset is NaN or +-inf come out NaN, as there
+// (its weights (1 - f) * valid are NaN).
 //
 // Bound on the H100: one multiply-add pair per output against 8 bytes (f32)
 // moved, so bytes bound it.  At the StyleGAN2-ADA 256^2 path shape, 38,016
@@ -187,9 +188,13 @@ row_shift_kernel(const T* __restrict__ x, const float* __restrict__ off, T* __re
   const float o = off[row];
   const float kf = floorf(o);
   // A shift outside [-(l_out + 1), L] reads nothing in frame for any output;
-  // the test also catches NaN and keeps the int conversion in range.
+  // the test also catches NaN and +-inf and keeps the int conversion in
+  // range.  Those rows come out NaN (their fraction is NaN, as in the JAX
+  // package), a finite shift out of frame zero.
   if (!(kf >= -(float)l_out - 1.f && kf <= (float)L)) {
-    if (vec) {
+    if (!isfinite(o)) {
+      for (int l = lane; l < l_out; l += 32) orow[l] = from_f32<T>(__int_as_float(0x7fc00000));
+    } else if (vec) {
       for (int j = lane; j < l_out / Vec<T>::N; j += 32)
         reinterpret_cast<uint4*>(orow)[j] = make_uint4(0u, 0u, 0u, 0u);
     } else {

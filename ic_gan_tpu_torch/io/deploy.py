@@ -80,14 +80,18 @@ def accumulate_standing_stats(
     return g
 
 
-def make_sampler(g: nn.Module, *, batch_size: Optional[int] = None, device=None):
+def make_sampler(g: nn.Module, *, batch_size: Optional[int] = None, device=None,
+                 **apply_kwargs):
     """``sampler(z, label=None, feats=None, device_output=False)`` running
-    ``g`` (moved to ``device``, default CUDA) in batches of ``batch_size``.
+    ``g(z, label, feats, **apply_kwargs)`` (g moved to ``device``, default
+    CUDA) in batches of ``batch_size``: the StyleGAN2 generator takes
+    ``truncation_psi`` and ``noise_mode`` so.
 
     Folds spectral norm in place first, so no forward runs a power
-    iteration; cast the weights beforehand with ``cast_params`` to sample in
-    bf16.  A request of any size runs in full batches, the tail padded with
-    copies of its first row, so every launch sees one shape.  Returns NHWC
+    iteration (a StyleGAN2 generator has none, and is left as it is); cast
+    the weights beforehand with ``cast_params`` to sample in bf16.  A
+    request of any size runs in full batches, the tail padded with copies of
+    its first row, so every launch sees one shape.  Returns NHWC
     images, float32: a numpy array, or with ``device_output`` a tensor left
     on the device for a consumer there.
     """
@@ -109,7 +113,7 @@ def make_sampler(g: nn.Module, *, batch_size: Optional[int] = None, device=None)
                 hi = min(lo + bs, n)
                 pad = bs - (hi - lo)
                 img = g(put(z, lo, hi, pad), put(label, lo, hi, pad),
-                        put(feats, lo, hi, pad))
+                        put(feats, lo, hi, pad), **apply_kwargs)
                 outs.append(img[: hi - lo].permute(0, 2, 3, 1))
             out = torch.cat(outs) if len(outs) > 1 else outs[0].contiguous()
         return out if device_output else np.ascontiguousarray(out.cpu().numpy())

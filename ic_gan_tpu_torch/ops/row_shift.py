@@ -2,7 +2,8 @@
 
 Port of ``ic_gan_tpu/ops/pallas/row_shift.py``.  ``row_shift(x, off, l_out)``
 computes ``out[b, l] = x[b, l + off[b]]`` for ``l < l_out`` with linear
-interpolation and zero outside ``[0, L)``.  It is ``RowShift.apply``: on CUDA
+interpolation and zero outside ``[0, L)``; a row whose offset is NaN or
+±inf comes out NaN.  It is ``RowShift.apply``: on CUDA
 tensors its forward launches ``csrc/row_shift.cu``, on CPU tensors it runs
 the plain version ``row_shift_ref`` (``fast_warp._frac_shift_rows_2d`` of
 the JAX package).  The op is linear in ``x``, and its adjoint is the same op
@@ -31,15 +32,18 @@ def row_shift_ref(x: torch.Tensor, off: torch.Tensor,
                   l_out: Optional[int] = None) -> torch.Tensor:
     """Plain version: two gathers from the zero-padded row and a lerp in
     float32 (or wider), returned in x's type.  x (B, L), off (B,) →
-    (B, l_out).  A row whose shift reads nothing in frame, or whose offset
-    is NaN, comes out zero, as the kernel gives."""
+    (B, l_out).  A row whose finite shift reads nothing in frame comes out
+    zero; a row whose offset is NaN or ±inf comes out NaN, as
+    ``fast_warp._frac_shift_rows_2d`` of the JAX package and the kernel give
+    (its fraction is NaN, and NaN·0 is NaN)."""
     B, L = x.shape
     l_out = L if l_out is None else l_out
     cd = torch.promote_types(x.dtype, torch.float32)
     off = off.to(torch.promote_types(off.dtype, torch.float32))
     k = torch.floor(off)
-    in_frame = (k >= -l_out) & (k <= L)
-    f = torch.where(in_frame, off - k, 0.0).to(cd)[:, None]
+    in_frame = (k >= -l_out) & (k <= L)   # false for NaN and ±inf
+    f = torch.where(in_frame, off - k,
+                    torch.where(torch.isfinite(off), 0.0, float("nan"))).to(cd)[:, None]
     valid = in_frame.to(cd)[:, None]
     kc = torch.where(in_frame, k, 0.0).to(torch.int64)
     xp = torch.nn.functional.pad(x.to(cd), (l_out, l_out + 2))
@@ -123,7 +127,8 @@ class RowShift(torch.autograd.Function):
 def row_shift(x: torch.Tensor, off: torch.Tensor,
               l_out: Optional[int] = None) -> torch.Tensor:
     """out[b, l] = x[b, l + off[b]] for l < l_out (default L), linear
-    interpolation, zero outside [0, L).  x (B, L) float32 or bfloat16, off
+    interpolation, zero outside [0, L), NaN rows for NaN or ±inf offsets.
+    x (B, L) float32 or bfloat16, off
     (B,) pixels, float32 or wider → (B, l_out) in x's type."""
     return RowShift.apply(x, off.to(torch.promote_types(off.dtype, torch.float32)),
                           x.shape[1] if l_out is None else int(l_out), 0)

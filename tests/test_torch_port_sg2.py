@@ -15,7 +15,9 @@ from torch.nn.utils import skip_init
 import jax
 import jax.numpy as jnp
 
+from ic_gan_tpu.io import deploy as jdeploy
 from ic_gan_tpu.models import stylegan2 as jsg2
+from ic_gan_tpu_torch.io import deploy as tdeploy
 from ic_gan_tpu_torch.io.convert import (
     stylegan2_state_dict_from_jax,
     stylegan2_variables_from_state_dict,
@@ -211,3 +213,25 @@ def test_minibatch_std_matches_jax():
         ref = jax.jit(lambda a: jsg2.minibatch_std(a, group, f))(jnp.asarray(x))
         got = tsg2.minibatch_std(_nchw(x), group, f)
         np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("nets", ["f32"], indirect=True)
+def test_sampler_with_truncation_and_const_noise_matches_jax(nets):
+    """``make_sampler`` passes ``truncation_psi`` and ``noise_mode`` to the
+    generator, as the JAX sampler's ``apply_kwargs``: a request of 6 at
+    batch 4 (the tail padded) against JAX's on the same weights, f32 bar.
+    The StyleGAN2 generator has no spectral norm, so folding leaves it
+    as it is."""
+    kw = dict(batch_size=4, truncation_psi=0.7, noise_mode="const")
+    z, h = nets["z"][[0, 1, 2, 3, 0, 1]], nets["h"][[3, 2, 1, 0, 3, 2]]
+    ref = jdeploy.make_sampler(nets["jg"], nets["g_vars"], **kw)(z, None, h)
+    g = nets["g"]
+    before = {k: v.clone() for k, v in g.state_dict().items()}
+    got = tdeploy.make_sampler(g, device="cpu", **kw)(z, None, h)
+    assert got.shape == (6, 32, 32, 3) and got.dtype == np.float32
+    assert np.abs(got - ref).max() <= _bar("f32", ref)
+    assert all(torch.equal(v, before[k]) for k, v in g.state_dict().items())
+    with torch.no_grad():
+        direct = g(torch.from_numpy(z[:4]), None, torch.from_numpy(h[:4]), truncation_psi=0.7,
+                   noise_mode="const")
+    np.testing.assert_array_equal(got[:4], _nhwc(direct))

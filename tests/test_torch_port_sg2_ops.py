@@ -219,3 +219,30 @@ def test_row_shift_bf16_lerps_in_f32():
     got = trs.row_shift(torch.from_numpy(x).bfloat16(), torch.from_numpy(off))
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
+def test_row_shift_non_finite_offsets_give_nan_rows_as_jax():
+    """A NaN or ±inf offset gives a NaN row in JAX's XLA twin and in the
+    Pallas kernel (interpret mode): its fraction is NaN, and NaN·0 is NaN.
+    The port's plain version and Function give the same rows, NaN where JAX
+    gives NaN; a finite offset out of frame still gives zeros.  The adjoint
+    (the same shift with -off) keeps those rows NaN."""
+    L, l_out = 40, 24
+    x, _ = _rows(B=6, L=L)
+    off = np.array([np.nan, np.inf, -np.inf, 1.5, -(l_out + 1.5), L + 0.5], np.float32)
+    xj, oj = jnp.asarray(x), jnp.asarray(off)
+    oracle = np.asarray(jwarp._frac_shift_rows_2d(xj, oj, l_out))
+    # Called as it stands: inside an enclosing jit, XLA may fold the
+    # wrapper's weight·valid into a select, which turns the ±inf rows to zero.
+    pallas = np.asarray(jrs.row_shift(xj, oj, True, l_out=l_out))
+    nan_rows = np.isnan(oracle).all(axis=1)
+    assert nan_rows.tolist() == [True, True, True, False, False, False]
+    assert np.isnan(pallas[:3]).all() and not oracle[4:].any()
+    xt, ot = torch.from_numpy(x), torch.from_numpy(off)
+    for got in (trs.row_shift_ref(xt, ot, l_out), trs.row_shift(xt, ot, l_out)):
+        np.testing.assert_allclose(got.numpy(), oracle, atol=1e-6, equal_nan=True)
+        np.testing.assert_allclose(got.numpy(), pallas, atol=1e-6, equal_nan=True)
+    xg = xt.clone().requires_grad_(True)
+    (adj,) = torch.autograd.grad(trs.row_shift(xg, ot, l_out), xg, torch.ones(6, l_out))
+    assert torch.isnan(adj[:3]).all() and torch.isfinite(adj[3:]).all()
+    assert not adj[4:].any()
