@@ -28,7 +28,9 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    kernel launches are counted over exactly these steps; then ms per step
    and images per second;
 8. train-step parity: one step of a res-64 ch-16 G and D in f32 from the
-   same weights and z on the card and on the CPU;
+   same weights and z on the card and on the CPU; then the same with class
+   conditioning (cc_icgan, 10 classes) and DiffAugment, the augmentation
+   draws the same on both sides;
 9. kernels B3 (ADA row shift; NaN rows for non-finite offsets) and B4
    (fused bias-activation: its forward and its backward kernel) against
    their plain versions on the card: B4 at
@@ -52,7 +54,15 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    phase 10 derives; ADA's p, the tick records (s/kimg), the snapshots (size,
    save and load time), a bit-for-bit reload into a fresh trainer and one
    more step from it against the live one; then ``make_sampler`` over the
-   EMA G with ``truncation_psi`` 0.7 and constant noise against direct calls.
+   EMA G with ``truncation_psi`` 0.7 and constant noise against direct calls;
+13. the BigGAN training loop: ``Trainer.run`` for 2 epochs of 3 steps at
+   phase 7's model with upstream's cc_icgan heads (1000 classes, 2048-d
+   features) and DiffAugment, from an in-memory dataset drawn on the card;
+   B1 and B2 launch 4 and 3 times in every step; img/s of each epoch, the
+   snapshot (size, save and load time), a bit-for-bit reload (history and
+   the dataset's RNG included) and one more step from it against the live
+   one; ``make_sampler`` over the folded bf16 EMA G with labels and features
+   against direct calls.
 
 ``--profile`` adds device-time breakdowns of one sampler batch, one BigGAN
 train step and one StyleGAN2 main and reg step, with the kernels launched
@@ -63,6 +73,8 @@ JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -74,11 +86,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.nn.utils import skip_init
 
 from ic_gan_tpu_torch.data.ada import AugmentPipe
+from ic_gan_tpu_torch.data.augment import augment_draws
 from ic_gan_tpu_torch.data.datasets import Batch
 from ic_gan_tpu_torch.io.checkpoint import load_checkpoint
 from ic_gan_tpu_torch.io.deploy import cast_params, fold_spectral_norm, make_sampler
@@ -97,6 +111,7 @@ from ic_gan_tpu_torch.ops.attention import (
 from ic_gan_tpu_torch.train.state import GANTrainState
 from ic_gan_tpu_torch.train.step import TrainConfig, make_train_step
 from ic_gan_tpu_torch.train import stylegan2_trainer as sg2_loop
+from ic_gan_tpu_torch.train import trainer as biggan_loop
 from ic_gan_tpu_torch.train.stylegan2_step import (
     SG2TrainConfig,
     SG2TrainState,
@@ -178,6 +193,20 @@ TRAIN_STEPS = 5
 PARITY_MODEL = dict(resolution=64, G_ch=16, D_ch=16, G_attn="32", D_attn="32")
 PARITY_MB = 4
 PARITY_GRAD_REL, PARITY_GRAD_FLOOR, PARITY_STATE_REL = 1e-2, 1e-5, 1e-3
+# The class-and-instance-conditioned (cc_icgan) step with DiffAugment: phase 8's
+# model with 10 classes, the same augmentation draws on both sides.
+PARITY_CLASSES = 10
+DIFF_AUGMENT = "color,translation,cutout"
+# The BigGAN training loop (phase 13): phase 7's model with upstream's
+# cc_icgan_biggan_imagenet_res256 heads (class_cond, 1000 classes, 2048-d
+# features), bf16 compute, phase 7's TrainConfig plus DiffAugment; 2 epochs of
+# 3 steps, a save and one rotating copy every epoch, spectra every step.  The
+# dataset (64 images, labels, unit features) is drawn on the card from a seed.
+BIGGAN_LOOP_MODEL = dict(TRAIN_MODEL, class_cond=True, n_classes=1000)
+BIGGAN_LOOP_EPOCHS, BIGGAN_LOOP_STEPS = 2, 3
+BIGGAN_LOOP_IMAGES = 64
+BIGGAN_LOOP_SAMPLES = 200
+BIGGAN_LOOP_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_biggan_loop")
 
 # --- the StyleGAN2-ADA path and kernels B3 and B4 ---------------------------------
 # The JAX package's 256² StyleGAN2 train bench cell (benchmarks/bench_sg2_train.py:
@@ -889,36 +918,86 @@ def phase_train(device, profile: bool) -> dict:
     return launches
 
 
-def phase_train_parity(device) -> None:
+@contextlib.contextmanager
+def relu_trace(masks=None):
+    """``F.relu`` replaced for the block: every call's input is recorded
+    (on the CPU), and with ``masks``, the records of another run, call i
+    keeps the entries where that run's input was positive in place of its
+    own sign (its gradient is then that mask)."""
+    calls = []
+    real = F.relu
+
+    def relu(x, inplace=False):
+        i = len(calls)
+        calls.append(x.detach().cpu())
+        if masks is None:
+            return real(x, inplace=inplace)
+        return x * (masks[i] > 0).to(x.device, x.dtype)
+
+    F.relu = relu
+    try:
+        yield calls
+    finally:
+        F.relu = real
+
+
+def _worst_grad(m_test, m_ref, which):
+    """(worst relative |Δ| over a network's gradients, its tensor, max|Δ|,
+    max|ref|), each |Δ| relative to max(max|ref|, the floor's share of the
+    network's largest gradient), as the bars read it."""
+    top = max(v.abs().max().item() for v in m_ref[which].values())
+    worst = (0.0, "", 0.0, 0.0)
+    for k, r in m_ref[which].items():
+        err = (m_test[which][k].cpu() - r).abs().max().item()
+        rmax = r.abs().max().item()
+        rel = err / max(rmax, PARITY_GRAD_FLOOR * top / PARITY_GRAD_REL)
+        worst = max(worst, (rel, k, err, rmax))
+    return worst
+
+
+def phase_train_parity(device, cc: bool = False) -> None:
     """One train step from the same weights, batch and z on the card and on
     the CPU, f32 (TF32 off since phase 1): losses, raw gradients, SN and BN
-    state."""
-    tcfg = TrainConfig(ema_start=0, adam_eps=1e-3)
-    cfg, g_cpu, d_cpu = build_gan(PARITY_MODEL, torch.float32, "cpu", seed=5)
-    nets = {}
-    for label, dev in (("cpu", "cpu"), ("card", device)):
-        g = skip_init(Generator, cfg, device=dev)
-        d = skip_init(Discriminator, cfg, device=dev)
-        g.load_state_dict(g_cpu.state_dict())
-        d.load_state_dict(d_cpu.state_dict())
-        nets[label] = (g, d)
+    state.  With ``cc``, the class-and-instance-conditioned model and
+    DiffAugment, its draws made once on the CPU and given to both sides.
+    Each ReLU input is recorded on both sides; the entries whose sign
+    differs are counted, and the card's step runs once more with the CPU's
+    ReLU signs in place of its own, to show what of the gradients' gap they
+    make (logged, not gated)."""
+    tcfg = TrainConfig(ema_start=0, adam_eps=1e-3, class_cond=cc,
+                       DiffAugment=DIFF_AUGMENT if cc else "")
+    model = dict(PARITY_MODEL, class_cond=True, n_classes=PARITY_CLASSES) if cc else PARITY_MODEL
+    cfg, g_cpu, d_cpu = build_gan(model, torch.float32, "cpu", seed=5)
     gen = torch.Generator().manual_seed(6)
     res, mb = cfg.resolution, PARITY_MB
     batch = dict(x=torch.rand((1, mb, 3, res, res), generator=gen) * 2 - 1,
                  feats=torch.randn((1, mb, cfg.instance_sz), generator=gen),
                  gen_feats=torch.randn((2, mb, cfg.instance_sz), generator=gen))
     zs = [torch.randn((mb, cfg.effective_dim_z), generator=gen) for _ in range(2)]
-    out = {}
-    for label, (g, d) in nets.items():
+    aug = None
+    if cc:
+        batch["label"] = torch.randint(0, cfg.n_classes, (1, mb), generator=gen)
+        batch["gen_label"] = torch.randint(0, cfg.n_classes, (2, mb), generator=gen)
+        aug = [augment_draws(DIFF_AUGMENT, torch.empty((n, 3, res, res)), gen)
+               for n in (2 * mb, mb)]
+
+    def run(dev, masks=None):
+        g = skip_init(Generator, cfg, device=dev)
+        d = skip_init(Discriminator, cfg, device=dev)
+        g.load_state_dict(g_cpu.state_dict())
+        d.load_state_dict(d_cpu.state_dict())
         state = GANTrainState.create(g, d, tcfg.g_optimizer(), tcfg.d_optimizer())
         before = sagan_attention_bwd.launches
-        dev = g.linear.weight.device
-        _, m = make_train_step(tcfg, cfg.effective_dim_z, debug_grads=True)(
-            state, {k: v.to(dev) for k, v in batch.items()}, zs=[z.to(dev) for z in zs])
-        if label == "card" and sagan_attention_bwd.launches == before:
+        with relu_trace(masks) as relus:
+            _, m = make_train_step(tcfg, cfg.effective_dim_z, debug_grads=True)(
+                state, {k: v.to(dev) for k, v in batch.items()}, zs=[z.to(dev) for z in zs],
+                aug_draws=aug)
+        if dev != "cpu" and sagan_attention_bwd.launches == before:
             raise AssertionError("the card's step did not launch the attention backward")
-        out[label] = (m, g, d)
-    (m_cpu, g_c, d_c), (m_gpu, g_g, d_g) = out["cpu"], out["card"]
+        return m, g, d, relus
+
+    m_cpu, g_c, d_c, relus_cpu = run("cpu")
+    m_gpu, g_g, d_g, relus_gpu = run(device)
     worst = {}
     for k in ("D_loss_real", "D_loss_fake", "G_loss"):
         a, b = m_gpu[k].item(), m_cpu[k].item()
@@ -927,14 +1006,12 @@ def phase_train_parity(device) -> None:
             raise AssertionError(f"train parity {k}: card {a} CPU {b}")
     for which in ("d_grads", "g_grads"):
         top = max(v.abs().max().item() for v in m_cpu[which].values())
-        rel = 0.0
         for k, r in m_cpu[which].items():
             err = (m_gpu[which][k].cpu() - r).abs().max().item()
             rmax = r.abs().max().item()
             if not err <= PARITY_GRAD_REL * rmax + PARITY_GRAD_FLOOR * top:
                 raise AssertionError(f"train parity {which} {k}: max|Δ| {err} (max|ref| {rmax})")
-            rel = max(rel, err / max(rmax, PARITY_GRAD_FLOOR * top / PARITY_GRAD_REL))
-        worst[which] = rel
+        worst[which] = _worst_grad(m_gpu, m_cpu, which)[0]
     rel = 0.0
     n_state = 0
     for net_g, net_c in ((g_g, g_c), (d_g, d_c)):
@@ -948,10 +1025,32 @@ def phase_train_parity(device) -> None:
                 rel = max(rel, err / rmax)
                 n_state += 1
     worst["state"] = rel
-    log(f"train-step parity ({res}^2 ch{cfg.G_ch} attention at 32, mb {mb}, f32, card "
+    what = f"cc_icgan ({cfg.n_classes} classes) + DiffAugment '{DIFF_AUGMENT}', " if cc else ""
+    log(f"train-step parity ({what}{res}^2 ch{cfg.G_ch} attention at 32, mb {mb}, f32, card "
         f"against CPU): worst relative |Δ|: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + f" ({n_state} SN/BN buffers; bars: losses 1e-4, grads {PARITY_GRAD_REL:g} of the "
         f"tensor's max + {PARITY_GRAD_FLOOR:g} of the network's, state {PARITY_STATE_REL:g})")
+
+    # Where the gradients' gap comes from: ReLU inputs whose sign the two
+    # sides' rounding decides differently, and the gap with those signs
+    # taken from the CPU.
+    if len(relus_gpu) != len(relus_cpu):
+        raise AssertionError(
+            f"{len(relus_gpu)} ReLU calls on the card, {len(relus_cpu)} on the CPU")
+    flips = []
+    for i, (a, b) in enumerate(zip(relus_gpu, relus_cpu)):
+        differ = (a > 0) != (b > 0)
+        if differ.any():
+            flips.append(f"call {i} of {len(relus_cpu)} {tuple(b.shape)}: {int(differ.sum())} "
+                         f"at |x| <= {b[differ].abs().max().item():.3e} "
+                         f"(max|x| {b.abs().max().item():.3e})")
+    m_masked = run(device, masks=relus_cpu)[0]
+    for which in ("d_grads", "g_grads"):
+        w, w_masked = _worst_grad(m_gpu, m_cpu, which), _worst_grad(m_masked, m_cpu, which)
+        log(f"  {which}: worst {w[0]:.3e} in {w[1]} (max|Δ| {w[2]:.3e}, max|ref| {w[3]:.3e}); "
+            f"with the CPU's ReLU signs on the card {w_masked[0]:.3e} in {w_masked[1]}")
+    log(f"  ReLU inputs of another sign on the card than on the CPU: "
+        + ("; ".join(flips) if flips else "none"))
 
 
 def _close(got, ref, f32_bar, what):
@@ -1486,15 +1585,18 @@ class CardDataset:
 
 
 def _state_tensors(state) -> dict:
-    """Every tensor and count of an SG2TrainState by a flat name."""
+    """Every tensor and count of a train state (``SG2TrainState``,
+    ``GANTrainState``) by a flat name."""
     out = {}
-    for key in ("g", "d", "g_ema", "g_opt", "d_opt"):
-        sd = getattr(state, key).state_dict()
-        if key.endswith("_opt"):
-            sd = {f"{i}.{k}": t for i, st in sd["state"].items() for k, t in st.items()}
-        out.update({f"{key}.{k}": t for k, t in sd.items()})
-    for key in ("pl_mean", "ada_p", "ada_sign_sum", "ada_count", "step", "cur_nimg"):
-        out[key] = getattr(state, key)
+    for field in dataclasses.fields(state):
+        v = getattr(state, field.name)
+        if isinstance(v, (torch.nn.Module, torch.optim.Optimizer)):
+            sd = v.state_dict()
+            if isinstance(v, torch.optim.Optimizer):
+                sd = {f"{i}.{k}": t for i, st in sd["state"].items() for k, t in st.items()}
+            out.update({f"{field.name}.{k}": t for k, t in sd.items()})
+        else:
+            out[field.name] = v
     return out
 
 
@@ -1708,6 +1810,220 @@ def phase_sg2_loop(device) -> dict:
                 load_ms=1e3 * load_s)
 
 
+class BigGANCardDataset:
+    """``BIGGAN_LOOP_IMAGES`` images in [-1, 1], class labels and unit
+    instance features drawn from a seed on the card, behind the dataset
+    surface the BigGAN trainer reads (``rng``, ``which_nn_balance``,
+    ``sample_batch``, ``sample_conditioning_instance_balance``, ``len``);
+    indices come from ``rng``, a numpy generator the trainer reseeds each
+    epoch and checkpoints, as an ``HDF5Dataset``'s."""
+
+    which_nn_balance = "instance_balance"
+
+    def __init__(self, res, n_classes, feat_dim, device, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        n = BIGGAN_LOOP_IMAGES
+        self.images = torch.rand((n, 3, res, res), generator=gen, device=device) * 2 - 1
+        self.labels = torch.randint(0, n_classes, (n,), generator=gen, device=device)
+        self.feats = F.normalize(torch.randn((n, feat_dim), generator=gen, device=device), dim=1)
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return BIGGAN_LOOP_IMAGES
+
+    def _draw(self, n):
+        return torch.as_tensor(self.rng.integers(0, BIGGAN_LOOP_IMAGES, n),
+                               device=self.images.device)
+
+    def sample_batch(self, n, weights=None):
+        i, j = self._draw(n), self._draw(n)
+        return Batch(self.images[i], self.labels[i], self.feats[j], None)
+
+    def sample_conditioning_instance_balance(self, n, weights=None):
+        i = self._draw(n)
+        return self.labels[i], self.feats[i]
+
+
+def phase_biggan_loop(device) -> dict:
+    """The BigGAN training loop (``Trainer.run``) at full width with class
+    conditioning and DiffAugment: B1 and B2 launch 4 and 3 times a step as
+    in phase 7; img/s of each epoch from the loop's own clock (the saves
+    after it left out); the snapshot's size and save/load time; a bit-for-bit
+    reload (history and the dataset's RNG included) and one more step from
+    it against the live one; ``make_sampler`` over the folded bf16 EMA G
+    with labels and features against direct calls."""
+    shutil.rmtree(BIGGAN_LOOP_DIR, ignore_errors=True)
+    cfg = BigGANConfig(**BIGGAN_LOOP_MODEL, dtype=torch.bfloat16)
+    tcfg = TrainConfig(ema_start=0, class_cond=True, DiffAugment=DIFF_AUGMENT)
+    lcfg = biggan_loop.TrainerConfig(
+        experiment_name="biggan_loop", weights_root=os.path.join(BIGGAN_LOOP_DIR, "weights"),
+        logs_root=os.path.join(BIGGAN_LOOP_DIR, "logs"), num_epochs=BIGGAN_LOOP_EPOCHS,
+        test_every=BIGGAN_LOOP_EPOCHS + 1, save_every=1, num_save_copies=1, seed=41,
+        batch_size=TRAIN_MB, log_every=1, sv_log_interval=1)
+    dataset = BigGANCardDataset(cfg.resolution, cfg.n_classes, cfg.instance_sz, device, seed=42)
+    t0 = time.perf_counter()
+    tr = biggan_loop.Trainer(cfg, tcfg, lcfg, dataset, device=device)
+    set_gamma(tr.state.g, tr.state.d, tr.state.g_ema)
+    sync()
+    n_params = {k: sum(p.numel() for p in getattr(tr.state, k).parameters()) for k in ("g", "d")}
+    log(f"biggan loop: Trainer at {cfg.resolution}^2 G_ch {cfg.G_ch} D_ch {cfg.D_ch}, "
+        f"class_cond with {cfg.n_classes} classes and {cfg.instance_sz}-d features, "
+        f"DiffAugment '{DIFF_AUGMENT}', microbatch {TRAIN_MB}, bf16 compute; G "
+        f"{n_params['g'] / 1e6:.2f} M and D {n_params['d'] / 1e6:.2f} M parameters; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    per_step, saves = [], []
+    real_step, real_save = tr.step_fn, biggan_loop.save_checkpoint
+
+    def step(state, batch, generator):
+        c0 = counts()
+        out = real_step(state, batch, generator)
+        c1 = counts()
+        per_step.append({k: c1[k] - c0[k] for k in c0})
+        return out
+
+    def save_checkpoint(*args, **kw):
+        sync()
+        t1 = time.perf_counter()
+        path = real_save(*args, **kw)
+        saves.append(time.perf_counter() - t1)
+        return path
+
+    tr.step_fn = step
+    biggan_loop.save_checkpoint = save_checkpoint
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.run(steps_per_epoch=BIGGAN_LOOP_STEPS)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        biggan_loop.save_checkpoint = real_save
+    tr.step_fn = real_step
+
+    n_steps = BIGGAN_LOOP_EPOCHS * BIGGAN_LOOP_STEPS
+    if len(per_step) != n_steps or any(
+            c != dict(B1=4, B2=3, B3=0, B4=0, B4bwd=0) for c in per_step):
+        raise AssertionError(f"biggan loop launches per step {per_step}: expected B1 4 and "
+                             "B2 3 (phase 7's), B3 and B4 none")
+    h = tr.history
+    if (h["itr"], h["epoch"], h["save_num"]) != (n_steps, BIGGAN_LOOP_EPOCHS, 0) \
+            or len(saves) != 2 * BIGGAN_LOOP_EPOCHS:
+        raise AssertionError(f"biggan loop history {h}, {len(saves)} saves")
+    with open(os.path.join(lcfg.logs_root, "biggan_loop", "biggan_loop_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r for r in recs if "G_loss" in r]
+    spectra = [r for r in recs if any(k.startswith("G_sv/") for k in r)]
+    if ([r["itr"] for r in losses] != list(range(1, n_steps + 1)) or len(spectra) != n_steps
+            or not all(math.isfinite(v) for r in recs for k, v in r.items() if k != "_stamp")):
+        raise AssertionError(f"biggan loop log: {len(losses)} loss and {len(spectra)} spectra "
+                             "records, or a value not finite")
+    if not all(math.isfinite(r["G_loss"]) and r["D_grad_nonfinite"] == 0 for r in losses):
+        raise AssertionError("biggan loop: a loss is not finite or a gradient was scrubbed")
+    epochs = [dict(e) for e in tr.epoch_stats]
+
+    # The snapshot into a fresh trainer (other seed), bit for bit.
+    wdir = os.path.join(lcfg.weights_root, "biggan_loop")
+    size = sum(os.path.getsize(os.path.join(wdir, n)) for n in os.listdir(wdir))
+    fresh = biggan_loop.Trainer(cfg, tcfg, dataclasses.replace(lcfg, seed=43), BigGANCardDataset(
+        cfg.resolution, cfg.n_classes, cfg.instance_sz, device, seed=42), device=device)
+    sync()
+    t1 = time.perf_counter()
+    fresh.resume()
+    sync()
+    load_s = time.perf_counter() - t1
+    live, back = _state_tensors(tr.state), _state_tensors(fresh.state)
+    diff = [k for k, v in live.items()
+            if not (torch.equal(v, back[k]) if torch.is_tensor(v) else v == back[k])]
+    rng_state = fresh.dataset.rng.bit_generator.state
+    if set(live) != set(back) or diff or fresh.history != tr.history \
+            or rng_state != tr.dataset.rng.bit_generator.state:
+        raise AssertionError(f"biggan snapshot reload differs in {diff[:5]} or its history or "
+                             "dataset RNG state")
+    # One more step from each, same batch and generator: phase 12's bars.
+    itr = tr.history["itr"]
+    batch = tr.make_batch()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, m_live = tr.step_fn(tr.state, batch, tr.step_generator(itr))
+        _, m_back = fresh.step_fn(fresh.state, batch, tr.step_generator(itr))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    pairs = {k: (m_live[k].item(), m_back[k].item()) for k in m_live}
+    worst_loss = max(abs(a - b) / max(abs(a), 1e-6) for a, b in pairs.values())
+    if worst_loss > 1e-4:
+        raise AssertionError(f"biggan step after reload: losses differ by {worst_loss:.3e}: "
+                             f"{pairs}")
+    live, back = _state_tensors(tr.state), _state_tensors(fresh.state)
+    worst = dict(state=0.0, weights=0.0)
+    for k in [k for k in live if k.startswith(("g.", "d.", "g_ema."))]:
+        a, b = live[k].float(), back[k].float()
+        err = (a - b).abs().max().item()
+        scale = max(a.abs().max().item(), 1e-12)
+        kind = "state" if k.endswith((".u0", ".sv0", ".stored_mean", ".stored_var")) else "weights"
+        if kind == "state" and err > PARITY_STATE_REL * scale:
+            raise AssertionError(f"biggan step after reload: {k} max|Δ| {err:.3e} ({scale:.3e})")
+        worst[kind] = max(worst[kind], err / scale)
+    del fresh, live, back
+    torch.cuda.empty_cache()
+
+    # The folded bf16 EMA G behind the sampler: 200 images with labels and
+    # features in batches of 128 (the tail padded) against direct calls.
+    g_ema = cast_params(fold_spectral_norm(copy.deepcopy(tr.state.g_ema).eval()), torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(44)
+    n = BIGGAN_LOOP_SAMPLES
+    z = torch.randn((n, cfg.effective_dim_z), generator=gen, device=device)
+    labels, feats = dataset.sample_conditioning_instance_balance(n)
+    sampler = make_sampler(g_ema, batch_size=SAMPLER_BATCH, device=device)
+    reset_counts()
+    got = sampler(z, labels, feats, device_output=True)
+    sampler_b1 = counts()["B1"]
+    with torch.inference_mode():
+        direct = torch.cat([g_ema(z[lo:lo + k], labels[lo:lo + k], feats[lo:lo + k])
+                            for lo, k in ((0, SAMPLER_BATCH), (SAMPLER_BATCH, n - SAMPLER_BATCH))])
+    sync()
+    direct = direct.permute(0, 2, 3, 1)
+    batches = math.ceil(n / SAMPLER_BATCH)
+    if got.shape != (n, cfg.resolution, cfg.resolution, 3) or sampler_b1 != batches \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"biggan sampler gave {tuple(got.shape)}, B1 launches {sampler_b1}")
+    same_batch = torch.equal(got[:SAMPLER_BATCH], direct[:SAMPLER_BATCH])
+    dev_ = (got - direct).abs()
+    tail_ok = bool((dev_[SAMPLER_BATCH:] <= BF16_TOL["atol"]
+                    + BF16_TOL["rtol"] * direct[SAMPLER_BATCH:].abs()).all())
+    if not same_batch or not tail_ok:
+        raise AssertionError(f"biggan sampler: full batch bit for bit {same_batch}; padded tail "
+                             f"max|Δ| {dev_[SAMPLER_BATCH:].max().item():.3e}")
+    del g_ema, sampler
+    sheets = [n for n in os.listdir(os.path.join(lcfg.logs_root, "biggan_loop"))
+              if n.startswith("fixed_samples")]
+    shutil.rmtree(BIGGAN_LOOP_DIR, ignore_errors=True)
+
+    per_step_imgs = TRAIN_MB * tcfg.num_D_steps * tcfg.num_D_accumulations
+    log(f"biggan loop: {n_steps} steps in {wall:.2f} s (saves included); launches per step "
+        f"B1 4, B2 3, B3 and B4 0 in each (phase 7's); epochs (s, img/s, the saves after them "
+        f"left out): " + ", ".join(f"({e['seconds']:.3f}, {e['img_per_s']:.2f})" for e in epochs)
+        + f"; {per_step_imgs} D-real images a step; {len(losses)} loss and {len(spectra)} "
+        f"spectra records; progress sheets written: {len(sheets)} (none where PIL is absent)")
+    log(f"biggan loop snapshot: {size / 2 ** 20:.1f} MiB; save {1e3 * statistics.median(saves):.0f} "
+        f"ms (median of {len(saves)}: " + ", ".join(f"{1e3 * t:.0f}" for t in saves)
+        + f"), load {1e3 * load_s:.0f} ms ({size / 2 ** 30 / max(load_s, 1e-9):.2f} GiB/s); "
+        f"reload bit for bit in {len(_state_tensors(tr.state))} tensors and counts, history "
+        f"and dataset RNG; the next step from it against the live one's (cuDNN deterministic): "
+        f"worst relative |Δ| losses {worst_loss:.3e}, state {worst['state']:.3e} (bars 1e-4, "
+        f"{PARITY_STATE_REL:g}); weights after Adam {worst['weights']:.3e} of a tensor's "
+        f"largest entry (logged)")
+    log(f"biggan sampler: make_sampler(folded bf16 EMA G, batch_size {SAMPLER_BATCH}) for "
+        f"{n} images with labels and features against direct calls: full batch bit for bit; "
+        f"padded tail max|Δ| {dev_[SAMPLER_BATCH:].max().item():.3e} (bar atol "
+        f"{BF16_TOL['atol']} + rtol {BF16_TOL['rtol']}); B1 launches {sampler_b1}")
+    return dict(launches=launches, per_step=per_step[0], epochs=epochs,
+                snapshot_mib=size / 2 ** 20, save_ms=1e3 * statistics.median(saves),
+                load_ms=1e3 * load_s)
+
+
 def main(argv) -> int:
     card = phase_env()
     device = torch.device("cuda", 0)
@@ -1728,15 +2044,19 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     train = phase_train(device, "--profile" in argv)
     phase_train_parity(device)
+    phase_train_parity(device, cc=True)
     torch.cuda.empty_cache()
     sg2_run = phase_sg2_train(device, "--profile" in argv)
     torch.cuda.empty_cache()
     phase_sg2_train_parity(device)
     torch.cuda.empty_cache()
     loop = phase_sg2_loop(device)
+    torch.cuda.empty_cache()
+    bg = phase_biggan_loop(device)
     b2 = bwd_timings["G"]
-    by_path = lambda sampler, train_, sg2_train, sg2_loop_=0: dict(  # noqa: E731
-        sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_)
+    by_path = lambda sampler, train_, sg2_train, sg2_loop_=0, biggan_loop_=0: dict(  # noqa: E731
+        sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_,
+        biggan_loop=biggan_loop_)
     per_loop_step = lambda k: {v: g[k] for v, (g, _) in loop["by_variant"].items()}  # noqa: E731
     b3, b3a = sg2_timings["B3"], sg2_timings["B3_adjoint"]
     b4, b4b = sg2_timings["B4"], sg2_timings["B4bwd"]
@@ -1745,8 +2065,10 @@ def main(argv) -> int:
         name="sagan_attention_fwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_fwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:56",
-        launches=main_run["launches"] + train["fwd"],
-        launches_by_path=by_path(main_run["launches"], train["fwd"], 0),
+        launches=main_run["launches"] + train["fwd"] + bg["launches"]["B1"],
+        launches_by_path=by_path(main_run["launches"], train["fwd"], 0, 0,
+                                 bg["launches"]["B1"]),
+        launches_per_biggan_loop_step=bg["per_step"]["B1"],
         max_abs_err=max_err["fwd"],
         ms=b1["kernel_ms"], plain_ms=b1["plain_ms"],
         bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
@@ -1757,8 +2079,9 @@ def main(argv) -> int:
         name="sagan_attention_bwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_bwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:136",
-        launches=train["bwd"],
-        launches_by_path=by_path(0, train["bwd"], 0),
+        launches=train["bwd"] + bg["launches"]["B2"],
+        launches_by_path=by_path(0, train["bwd"], 0, 0, bg["launches"]["B2"]),
+        launches_per_biggan_loop_step=bg["per_step"]["B2"],
         max_abs_err=max_err["bwd"],
         ms=b2["kernel_ms"], plain_ms=b2["plain_ms"],
         bound_ms=b2["bound_ms"], bound_by=b2["bound_by"],

@@ -5,7 +5,9 @@ in NHWC layouts: linear kernels (in, out), conv kernels HWIO.  The port's
 modules use the upstream torch names and layouts: (out, in) and OIHW.  This
 is the port's own copy of the generator and discriminator key maps of
 ``ic_gan_tpu/io/torch_import.py`` (there they map torch → JAX; here the
-transforms run JAX → torch), extended by the ``accum_counter`` buffers.
+transforms run JAX → torch), extended by the ``accum_counter`` buffers and
+by the statistics each ``norm_style`` keeps (``bn`` its three buffers,
+``in`` its running mean and variance, the group norms and ``nonorm`` none).
 ``tree_to_torch`` applies a map to any tree shaped like one collection
 (raw gradients, EMA parameters).  The StyleGAN2 trees map by rule, both ways
 (``stylegan2_state_dict_from_jax``, ``stylegan2_variables_from_state_dict``).
@@ -54,17 +56,21 @@ def _conv(dst, tree_path, torch_prefix, bias=True):
     _sn_entries(dst, tree_path, torch_prefix)
 
 
-def _bn_stats(dst, tree_path, torch_prefix):
-    for jax_name, torch_name in (("mean", "stored_mean"), ("var", "stored_var"),
-                                 ("accum_counter", "accum_counter")):
+_NORM_STATS = {"bn": (("mean", "stored_mean"), ("var", "stored_var"),
+                      ("accum_counter", "accum_counter")),
+               "in": (("mean", "stored_mean"), ("var", "stored_var"))}
+
+
+def _bn_stats(dst, tree_path, torch_prefix, norm_style="bn"):
+    for jax_name, torch_name in _NORM_STATS.get(norm_style, ()):
         dst[("batch_stats",) + tree_path + ("bn", jax_name)] = (
             f"{torch_prefix}.{torch_name}", _ident)
 
 
-def _ccbn(dst, tree_path, torch_prefix):
+def _ccbn(dst, tree_path, torch_prefix, norm_style):
     _dense(dst, tree_path + ("gain",), f"{torch_prefix}.gain", bias=False)
     _dense(dst, tree_path + ("bias",), f"{torch_prefix}.bias", bias=False)
-    _bn_stats(dst, tree_path, torch_prefix)
+    _bn_stats(dst, tree_path, torch_prefix, norm_style)
 
 
 def _attention(dst, tree_path, torch_prefix):
@@ -75,18 +81,18 @@ def _attention(dst, tree_path, torch_prefix):
 
 def generator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]:
     """JAX variable path → (torch key, transform) for the generator."""
-    if cfg.class_cond:
-        raise NotImplementedError("the class-conditional generator is not ported yet")
     arch = g_arch(cfg.resolution, cfg.G_ch, cfg.G_attn)
     m: Dict[Path, Tuple[str, Callable]] = {}
+    if cfg.class_cond:
+        m[("params", "shared")] = ("shared.weight", _ident)
     if cfg.instance_cond and cfg.G_shared_feat:
         _dense(m, ("shared_feat",), "shared_feat")
     _dense(m, ("linear",), "linear")
     for i in range(len(arch["out_channels"])):
         p = ("block_%d" % i,)
         t = f"blocks.{i}.0"
-        _ccbn(m, p + ("bn1",), f"{t}.bn1")
-        _ccbn(m, p + ("bn2",), f"{t}.bn2")
+        _ccbn(m, p + ("bn1",), f"{t}.bn1", cfg.norm_style)
+        _ccbn(m, p + ("bn2",), f"{t}.bn2", cfg.norm_style)
         _conv(m, p + ("conv1",), f"{t}.conv1")
         _conv(m, p + ("conv2",), f"{t}.conv2")
         if arch["in_channels"][i] != arch["out_channels"][i] or arch["upsample"][i]:
@@ -102,9 +108,6 @@ def generator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]:
 
 def discriminator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]:
     """JAX variable path → (torch key, transform) for the discriminator."""
-    if cfg.class_cond:
-        raise NotImplementedError(
-            "the class-conditional discriminator is not ported yet (ROADMAP.md A.3)")
     arch = d_arch(cfg.resolution, cfg.D_ch, cfg.D_attn)
     m: Dict[Path, Tuple[str, Callable]] = {}
     for i in range(len(arch["out_channels"])):
@@ -117,6 +120,9 @@ def discriminator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]
         if arch["attention"][i]:
             _attention(m, ("attn_%d" % i,), f"blocks.{i}.1")
     _dense(m, ("linear",), "linear")
+    if cfg.class_cond:
+        m[("params", "embed", "embedding")] = ("embed.weight", _ident)
+        _sn_entries(m, ("embed",), "embed")
     if cfg.instance_cond:
         _dense(m, ("linear_feat",), "linear_feat")
     return m

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from ic_gan_tpu_torch import resolve_device
-from ic_gan_tpu_torch.models.layers import CrossReplicaBatchNorm, _SpectralNormed
+from ic_gan_tpu_torch.models.layers import _SpectralNormed
 
 
 def fold_spectral_norm(module: nn.Module) -> nn.Module:
@@ -43,10 +43,12 @@ def cast_params(module: nn.Module, dtype: torch.dtype = torch.bfloat16) -> nn.Mo
 
 def reset_standing_stats(module: nn.Module) -> nn.Module:
     """Zero every batch norm's (stored_mean, stored_var, accum_counter) so a
-    fresh standing-statistics accumulation can begin."""
+    fresh standing-statistics accumulation can begin.  Only the ``bn`` style
+    keeps a counter; an ``in`` style keeps its running statistics, as the
+    JAX package's reset leaves them."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, CrossReplicaBatchNorm):
+            if "accum_counter" in m._buffers:
                 m.stored_mean.zero_()
                 m.stored_var.zero_()
                 m.accum_counter.zero_()

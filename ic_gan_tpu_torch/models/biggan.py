@@ -3,15 +3,18 @@
 Port of ``ic_gan_tpu/models/biggan.py`` (``g_arch``, ``d_arch``,
 ``BigGANConfig``, ``Generator``, ``Discriminator``).  Module names follow the
 upstream torch tree, so ``state_dict()`` keys are the reference's.  G:
-``shared_feat``, ``linear``, ``blocks.{i}.0`` (GBlock), ``blocks.{i}.1``
-(attention), ``output_layer.0`` (batch norm) and ``output_layer.2`` (conv).
-D: ``blocks.{i}.0`` (DBlock), ``blocks.{i}.1`` (attention), ``linear`` and
-``linear_feat``.  ``module.train()`` is the JAX package's ``train=True``.
+``shared`` (the class table), ``shared_feat``, ``linear``, ``blocks.{i}.0``
+(GBlock), ``blocks.{i}.1`` (attention), ``output_layer.0`` (batch norm) and
+``output_layer.2`` (conv).  D: ``blocks.{i}.0`` (DBlock), ``blocks.{i}.1``
+(attention), ``linear``, and the projection heads ``embed`` (classes) and
+``linear_feat`` (instances).  ``module.train()`` is the JAX package's
+``train=True``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
@@ -28,6 +31,8 @@ from ic_gan_tpu_torch.models.layers import (
     SelfAttention,
     SNConv,
     SNDense,
+    SNEmbed,
+    _ortho,
 )
 
 
@@ -90,12 +95,15 @@ class BigGANConfig:
     reference flags.  ``dtype`` is the compute type."""
 
     resolution: int = 64
+    n_classes: int = 1000
     G_ch: int = 64
     D_ch: int = 64
     dim_z: int = 120
     bottom_width: int = 4
     G_attn: str = "64"
     D_attn: str = "64"
+    G_shared: bool = True
+    shared_dim: int = 128
     hier: bool = True
     class_cond: bool = False
     instance_cond: bool = True
@@ -133,6 +141,10 @@ class BigGANConfig:
         so 119."""
         return self.z_chunk_size * self.num_slots if self.hier else self.dim_z
 
+    @property
+    def shared_dim_eff(self) -> int:
+        return self.shared_dim if self.shared_dim > 0 else self.dim_z
+
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
@@ -141,8 +153,9 @@ class Generator(nn.Module):
     """IC-GAN BigGAN generator.
 
     ``forward(z, label=None, feats=None, standing=False)``: z (N, dim_z),
-    feats (N, instance_sz) instance features → images (N, 3, res, res), float32
-    in [-1, 1].  ``standing=True`` accumulates standing batch-norm statistics.
+    label (N,) integer classes when ``class_cond``, feats (N, instance_sz)
+    instance features when ``instance_cond`` → images (N, 3, res, res),
+    float32 in [-1, 1].  ``standing=True`` accumulates standing batch-norm statistics.
     Runs on ``device`` (default CUDA); weights are drawn from ``generator``
     (a ``torch.Generator`` on that device) or the default one.  Built in eval
     mode; in training mode batch norm takes the batch's moments and every
@@ -153,22 +166,25 @@ class Generator(nn.Module):
 
     def __init__(self, cfg: BigGANConfig, device=None, generator=None):
         super().__init__()
-        if cfg.class_cond:
-            raise NotImplementedError(
-                "the class-conditional generator (`shared` embedding) is not ported yet")
         device = resolve_device(device)
         self.cfg = cfg
         arch = cfg.g_arch
         sn = dict(num_svs=cfg.num_G_SVs, num_itrs=cfg.num_SV_itrs, dtype=cfg.dtype,
                   device=device, generator=generator)
         cond = 0
+        if cfg.class_cond:
+            # An unnormalized table (ref BigGAN.py:202-204), read in float32.
+            width = cfg.shared_dim_eff if cfg.G_shared else cfg.n_classes
+            self.shared = nn.Embedding(cfg.n_classes, width, device=device,
+                                       _weight=_ortho((cfg.n_classes, width), device, generator))
+            cond = width
         if cfg.instance_cond:
             if cfg.G_shared_feat:
                 self.shared_feat = SNDense(cfg.instance_sz, cfg.shared_dim_feat,
                                            eps=cfg.SN_eps, **sn)
-                cond = cfg.shared_dim_feat
+                cond += cfg.shared_dim_feat
             else:
-                cond = cfg.instance_sz
+                cond += cfg.instance_sz
         cond += cfg.z_chunk_size
         z0 = cfg.z_chunk_size if cfg.hier else cfg.dim_z
         self.linear = SNDense(z0, arch["in_channels"][0] * cfg.bottom_width ** 2,
@@ -191,14 +207,23 @@ class Generator(nn.Module):
         self.eval()
 
     def forward(self, z, label=None, feats=None, standing: bool = False):
-        if label is not None:
-            raise ValueError("this generator is not class-conditional")
         cfg = self.cfg
-        y = None
+        embs = []
+        if cfg.class_cond:
+            if label is None:
+                raise ValueError("a class-conditional generator needs labels")
+            embs.append(self.shared(label))
+        elif label is not None:
+            raise ValueError("this generator is not class-conditional")
         if cfg.instance_cond:
             if feats is None:
                 raise ValueError("an instance-conditioned generator needs feats")
-            y = self.shared_feat(feats) if cfg.G_shared_feat else feats.to(cfg.dtype)
+            embs.append(self.shared_feat(feats) if cfg.G_shared_feat else feats.to(cfg.dtype))
+        # [class, feat], in the wider of their types (JAX's concatenate).
+        y = None
+        if embs:
+            dt = functools.reduce(torch.promote_types, [e.dtype for e in embs])
+            y = torch.cat([e.to(dt) for e in embs], dim=1)
         if cfg.hier:
             # The first chunk feeds the stem; each later one joins the
             # conditioning of one block's batch norms.
@@ -221,20 +246,19 @@ class Generator(nn.Module):
 
 
 class Discriminator(nn.Module):
-    """IC-GAN BigGAN discriminator with the instance projection head.
+    """IC-GAN BigGAN discriminator with the class and instance projection
+    heads (ref ``BigGAN.py:548-563, 629-641``): class only, ``embed`` of
+    the top width; instance only, ``linear_feat`` of that width; both, each
+    of half of it, concatenated [class, instance].
 
-    ``forward(x, label=None, feats=None)``: images x (N, 3, res, res), feats
-    (N, instance_sz) → scores (N, 1), float32.  The compute type is
+    ``forward(x, label=None, feats=None)``: images x (N, 3, res, res), label
+    (N,), feats (N, instance_sz) → scores (N, 1), float32.  The compute type is
     ``cfg.dtype``; weights and state are float32.  Runs on ``device``
     (default CUDA), weights drawn from ``generator``.  Built in eval mode.
     """
 
     def __init__(self, cfg: BigGANConfig, device=None, generator=None):
         super().__init__()
-        if cfg.class_cond:
-            raise NotImplementedError(
-                "the class-conditional discriminator heads need SNEmbed, which is "
-                "not ported yet (ROADMAP.md A.3)")
         device = resolve_device(device)
         self.cfg = cfg
         arch = cfg.d_arch
@@ -250,14 +274,17 @@ class Discriminator(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         top = arch["out_channels"][-1]
         self.linear = SNDense(top, 1, eps=cfg.SN_eps, **sn)
+        head = top // 2 if cfg.class_cond and cfg.instance_cond else top
+        if cfg.class_cond:
+            self.embed = SNEmbed(cfg.n_classes, head, eps=cfg.SN_eps, **sn)
         if cfg.instance_cond:
-            self.linear_feat = SNDense(cfg.instance_sz, top, eps=cfg.SN_eps, **sn)
+            self.linear_feat = SNDense(cfg.instance_sz, head, eps=cfg.SN_eps, **sn)
         self.eval()
 
     def forward(self, x, label=None, feats=None):
-        if label is not None:
-            raise ValueError("this discriminator is not class-conditional")
         cfg = self.cfg
+        if label is not None and not cfg.class_cond:
+            raise ValueError("this discriminator is not class-conditional")
         h = x.to(cfg.dtype)
         for stage in self.blocks:
             for m in stage:
@@ -265,9 +292,15 @@ class Discriminator(nn.Module):
         # Global sum pool over space (ref BigGAN.py:625).
         h = torch.sum(F.relu(h), dim=(2, 3))
         out = self.linear(h)
+        proj = []
+        if cfg.class_cond:
+            if label is None:
+                raise ValueError("a class-conditional discriminator needs labels")
+            proj.append(self.embed(label))
         if cfg.instance_cond:
             if feats is None:
                 raise ValueError("an instance-conditioned discriminator needs feats")
-            f = self.linear_feat(feats.to(cfg.dtype))
-            out = out + torch.sum(f * h, dim=1, keepdim=True)
+            proj.append(self.linear_feat(feats.to(cfg.dtype)))
+        if proj:
+            out = out + torch.sum(torch.cat(proj, dim=1) * h, dim=1, keepdim=True)
         return out.float()

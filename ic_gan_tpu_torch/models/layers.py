@@ -1,11 +1,12 @@
 """BigGAN layers in PyTorch (NCHW): the generator's and the discriminator's.
 
-Port of ``ic_gan_tpu/models/layers.py`` (``norm_style="bn"``).  Module,
-parameter and buffer names follow the upstream torch tree
-(``BigGAN_PyTorch/layers.py``), so ``state_dict()`` keys are the reference's:
-``weight``/``bias``, spectral-norm state ``u0``/``sv0``, batch-norm
-statistics ``stored_mean``/``stored_var``.  ``accum_counter`` (standing
-statistics) has no upstream counterpart and carries the JAX buffer's name.
+Port of ``ic_gan_tpu/models/layers.py``, every ``norm_style`` of the
+conditional batch norm included.  Module, parameter and buffer names follow
+the upstream torch tree (``BigGAN_PyTorch/layers.py``), so ``state_dict()``
+keys are the reference's: ``weight``/``bias``, spectral-norm state
+``u0``/``sv0``, batch-norm statistics ``stored_mean``/``stored_var``.
+``accum_counter`` (standing statistics) has no upstream counterpart and
+carries the JAX buffer's name.
 
 Each layer computes in its ``dtype`` (the model's compute type), casting its
 input and weights to it, as the JAX layers do.  Folding spectral norm
@@ -48,6 +49,35 @@ def _ortho(shape, device, generator) -> nn.Parameter:
     ``init.orthogonal_`` (``BigGAN.py:327-345``)."""
     return nn.Parameter(
         nn.init.orthogonal_(torch.empty(shape, device=device), generator=generator))
+
+
+# Reference init styles (``BigGAN.py:335-342``; argparse choices
+# ``utils.py:302-315``); "ortho" is the construction default.
+WEIGHT_INITS = {
+    "N02": lambda w, gen: nn.init.normal_(w, 0.0, 0.02, generator=gen),
+    "glorot": lambda w, gen: nn.init.xavier_uniform_(w, generator=gen),
+    "xavier": lambda w, gen: nn.init.xavier_uniform_(w, generator=gen),
+}
+
+
+@torch.no_grad()
+def apply_weight_init(module: nn.Module, style: str,
+                      generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Re-draw every weight of a built BigGAN G or D in place, as the
+    reference's ``init_weights`` overwrites every Conv2d/Linear/Embedding
+    weight after building the tree (``BigGAN.py:294,326-345``): the
+    ``weight`` of each linear, conv and embedding, G's ``shared`` table
+    included (the JAX package's ``kernel``/``embedding``/``shared`` leaves);
+    biases, batch-norm gains and attention gammas keep their values.
+    ``style="ortho"`` is a no-op (the construction default).  Draws come
+    from ``generator`` (on the module's device) or the default one."""
+    if style == "ortho":
+        return module
+    init = WEIGHT_INITS[style]
+    for name, p in module.named_parameters():
+        if name.rsplit(".", 1)[-1] == "weight":
+            init(p, generator)
+    return module
 
 
 class _SpectralNormed(nn.Module):
@@ -142,6 +172,104 @@ class SNConv(_SpectralNormed):
         return F.conv2d(x, w, b, padding=self.padding)
 
 
+class SNEmbed(_SpectralNormed):
+    """Embedding with spectral normalization over the (num_embeddings, dim)
+    table (ref ``SNEmbedding``, ``layers.py:171-200``): the table is the
+    (out, in) matrix, so ``u0`` has num_embeddings entries."""
+
+    def __init__(self, num_embeddings: int, features: int, num_svs: int = 1,
+                 num_itrs: int = 1, eps: float = SN_EPS,
+                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _ortho((num_embeddings, features), device, generator)
+        self._init_sn(num_embeddings, num_svs, num_itrs, eps, device, generator)
+
+    def forward(self, idx):
+        return F.embedding(idx, self.w_bar().to(self.dtype))
+
+
+def _batch_norm(m: nn.Module, x, standing: bool):
+    """Batch norm over ``m``'s ``stored_mean``/``stored_var``/``accum_counter``
+    (``CrossReplicaBatchNorm``'s semantics)."""
+    batch_moments = standing or m.training
+    if batch_moments:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        v = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+        with torch.no_grad():
+            if standing:
+                m.stored_mean += mean
+                m.stored_var += v
+                m.accum_counter += 1.0
+            else:
+                n = x.shape[0] * x.shape[2] * x.shape[3]
+                mom = BN_MOMENTUM
+                m.stored_mean.copy_((1 - mom) * m.stored_mean + mom * mean)
+                m.stored_var.copy_((1 - mom) * m.stored_var
+                                   + mom * (v * (n / max(n - 1, 1))))
+    else:
+        cnt = m.accum_counter[0]
+        use_standing = cnt > 0
+        cnt = torch.clamp(cnt, min=1.0)
+        mean = torch.where(use_standing, m.stored_mean / cnt, m.stored_mean)
+        v = torch.where(use_standing, m.stored_var / cnt, m.stored_var)
+    inv = torch.rsqrt(v + m.eps)
+    if batch_moments or x.dtype == torch.float32:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        return ((xf - mean[:, None, None]) * inv[:, None, None]).to(x.dtype)
+    return (x - mean.to(x.dtype)[:, None, None]) * inv.to(x.dtype)[:, None, None]
+
+
+def _instance_norm(m: nn.Module, x, batch_moments: bool):
+    """Instance norm with running statistics (the ``in`` style, ref
+    ``layers.py:421-431``, JAX ``InstanceNorm``): with ``batch_moments``
+    each sample is normalized by its own (H, W) moments and the running
+    statistics move toward their batch average (the variance unbiased over
+    H·W); otherwise the running statistics normalize."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    if batch_moments:
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        v = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+        with torch.no_grad():
+            n = x.shape[2] * x.shape[3]
+            mom = BN_MOMENTUM
+            m.stored_mean.copy_((1 - mom) * m.stored_mean + mom * mean.mean(dim=(0, 2, 3)))
+            m.stored_var.copy_((1 - mom) * m.stored_var
+                               + mom * v.mean(dim=(0, 2, 3)) * (n / max(n - 1, 1)))
+        out = (xf - mean) * torch.rsqrt(v + m.eps)
+    else:
+        out = ((xf - m.stored_mean[:, None, None])
+               * torch.rsqrt(m.stored_var + m.eps)[:, None, None])
+    return out.to(x.dtype)
+
+
+def group_norm(x, norm_style: str, eps: float = BN_EPS):
+    """Affine-free group norm with the reference's group choice (``groupnorm``,
+    ``layers.py:340-351``): ``gn_ch_N`` → C//N groups, ``gn_grp_N`` → N
+    groups, plain ``gn`` → 16, at most C and lowered until it divides C."""
+    c = x.shape[1]
+    if "ch" in norm_style:
+        groups = max(c // int(norm_style.split("_")[-1]), 1)
+    elif "grp" in norm_style:
+        groups = int(norm_style.split("_")[-1])
+    else:
+        groups = 16
+    groups = min(groups, c)
+    while c % groups:
+        groups -= 1
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    g = xf.reshape(x.shape[0], groups, c // groups, *x.shape[2:])
+    mean = g.mean(dim=(2, 3, 4), keepdim=True)
+    v = (g - mean).square().mean(dim=(2, 3, 4), keepdim=True)
+    return ((g - mean) * torch.rsqrt(v + eps)).reshape(x.shape).to(x.dtype)
+
+
+def _check_norm_style(norm_style: str):
+    if not (norm_style in ("bn", "in", "nonorm", "groupnorm") or norm_style.startswith("gn")):
+        raise ValueError(f"unknown norm_style {norm_style!r}")
+
+
 class CrossReplicaBatchNorm(nn.Module):
     """Parameter-free batch norm with torch ``F.batch_norm`` semantics.
 
@@ -165,49 +293,33 @@ class CrossReplicaBatchNorm(nn.Module):
         self.register_buffer("accum_counter", torch.zeros(1, device=device))
 
     def forward(self, x, standing: bool = False):
-        batch_moments = standing or self.training
-        if batch_moments:
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dim=(0, 2, 3))
-            v = xf.square().mean(dim=(0, 2, 3)) - mean.square()
-            with torch.no_grad():
-                if standing:
-                    self.stored_mean += mean
-                    self.stored_var += v
-                    self.accum_counter += 1.0
-                else:
-                    n = x.shape[0] * x.shape[2] * x.shape[3]
-                    mom = BN_MOMENTUM
-                    self.stored_mean.copy_((1 - mom) * self.stored_mean + mom * mean)
-                    self.stored_var.copy_((1 - mom) * self.stored_var
-                                          + mom * (v * (n / max(n - 1, 1))))
-        else:
-            cnt = self.accum_counter[0]
-            use_standing = cnt > 0
-            cnt = torch.clamp(cnt, min=1.0)
-            mean = torch.where(use_standing, self.stored_mean / cnt, self.stored_mean)
-            v = torch.where(use_standing, self.stored_var / cnt, self.stored_var)
-        inv = torch.rsqrt(v + self.eps)
-        if batch_moments or x.dtype == torch.float32:
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            return ((xf - mean[:, None, None]) * inv[:, None, None]).to(x.dtype)
-        return (x - mean.to(x.dtype)[:, None, None]) * inv.to(x.dtype)[:, None, None]
+        return _batch_norm(self, x, standing)
 
 
-class ConditionalBatchNorm(CrossReplicaBatchNorm):
+class ConditionalBatchNorm(nn.Module):
     """Class/instance-conditional batch norm (ref ``ccbn``): per-sample gain
     ``1 + gain(y)`` and bias ``bias(y)``, both spectrally normalized,
-    bias-free linears, after the parameter-free normalization."""
+    bias-free linears, after a parameter-free normalization chosen by
+    ``norm_style`` (ref ``layers.py:410-436``): ``bn`` (``CrossReplicaBatchNorm``'s,
+    with its buffers), ``in`` (instance norm with running statistics
+    ``stored_mean``/``stored_var``), ``gn``/``gn_ch_N``/``gn_grp_N`` (group
+    norm, the reference's ``gn`` branch with its ``self.normstyle`` typo
+    mended, as the JAX package has it) and ``nonorm``; the last two hold no
+    statistics, as upstream."""
 
     def __init__(self, features: int, cond_features: int, eps: float = BN_EPS,
                  sn_eps: float = SN_EPS, num_svs: int = 1, num_itrs: int = 1,
                  norm_style: str = "bn", dtype: torch.dtype = torch.float32,
                  device=None, generator=None):
-        if norm_style != "bn":
-            raise NotImplementedError(
-                f"norm_style {norm_style!r} is not ported yet (ROADMAP.md A.3); "
-                "only 'bn' is")
-        super().__init__(features, eps=eps, device=device)
+        super().__init__()
+        _check_norm_style(norm_style)
+        self.norm_style = norm_style
+        self.eps = eps
+        if norm_style in ("bn", "in"):
+            self.register_buffer("stored_mean", torch.zeros(features, device=device))
+            self.register_buffer("stored_var", torch.ones(features, device=device))
+        if norm_style == "bn":
+            self.register_buffer("accum_counter", torch.zeros(1, device=device))
         sn = dict(bias=False, num_svs=num_svs, num_itrs=num_itrs, eps=sn_eps,
                   dtype=dtype, device=device, generator=generator)
         self.gain = SNDense(cond_features, features, **sn)
@@ -216,7 +328,15 @@ class ConditionalBatchNorm(CrossReplicaBatchNorm):
     def forward(self, x, y, standing: bool = False):
         gain = 1.0 + self.gain(y)
         bias = self.bias(y)
-        out = super().forward(x, standing)
+        style = self.norm_style
+        if style == "bn":
+            out = _batch_norm(self, x, standing)
+        elif style == "in":
+            out = _instance_norm(self, x, self.training or standing)
+        elif style == "nonorm":
+            out = x
+        else:
+            out = group_norm(x, style, eps=self.eps)
         return out * gain[:, :, None, None] + bias[:, :, None, None]
 
 

@@ -1,7 +1,8 @@
 """The GAN train state: both networks, the EMA copy of G, both optimizers
 and the step count.  Port of ``ic_gan_tpu/train/state.py``; the networks'
 mutable state (spectral-norm ``u0``/``sv0``, batch-norm statistics) lives in
-their buffers."""
+their buffers.  Also the pieces both training loops share: each step's seed
+and the ``torch.profiler`` window."""
 
 from __future__ import annotations
 
@@ -9,8 +10,10 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import os
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -78,3 +81,30 @@ def frozen(module: nn.Module):
     finally:
         for p, flag in zip(module.parameters(), flags):
             p.requires_grad_(flag)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of a loop's step ``step`` generator: a hash of (seed, step)
+    alone, the counterpart of the JAX loops' ``fold_in(PRNGKey(seed), step)``."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+               >> np.uint64(1))
+
+
+def start_profile(device: torch.device) -> torch.profiler.profile:
+    """A started ``torch.profiler`` window over the host, and the card when
+    ``device`` is one."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof: torch.profiler.profile, device: torch.device, out_dir: str) -> None:
+    """End the window once ``device`` is idle and write ``out_dir/trace.json``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))

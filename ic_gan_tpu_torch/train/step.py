@@ -27,6 +27,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ic_gan_tpu_torch.data.augment import diff_augment
+from ic_gan_tpu_torch.models.layers import SNEmbed
 from ic_gan_tpu_torch.train import losses as losses_lib
 from ic_gan_tpu_torch.train.state import (
     GANTrainState,
@@ -79,15 +81,20 @@ def ortho_grad_term(module: nn.Module, strength: float,
     ``BigGAN_PyTorch/utils.py:1073-1099``): s·2·(WWᵀ∘(1−I))W on the
     (out, fan_in) matricization, for every parameter of rank ≥ 2 whose name
     holds none of ``blacklist_paths``.  WWᵀ does not depend on the column
-    order, so the term matches the JAX package's on its HWIO layout."""
+    order, so the term matches the JAX package's on its HWIO layout.  An
+    embedding table (num, dim) is matricized as (dim, num), as the JAX
+    package takes its last axis for ``out`` (upstream takes num)."""
+    tables = {f"{n}.weight" for n, m in module.named_modules()
+              if isinstance(m, (SNEmbed, nn.Embedding))}
     terms = {}
     for name, w in module.named_parameters():
         if w.dim() < 2 or any(b in name for b in blacklist_paths):
             continue
-        mat = w.reshape(w.shape[0], -1)
+        mat = w.T if name in tables else w.reshape(w.shape[0], -1)
         wwt = mat @ mat.T
         wwt = wwt - torch.diag(torch.diag(wwt))
-        terms[name] = strength * (2.0 * (wwt @ mat)).reshape(w.shape)
+        term = strength * 2.0 * (wwt @ mat)
+        terms[name] = term.T if name in tables else term.reshape(w.shape)
     return terms
 
 
@@ -109,47 +116,62 @@ def _snapshot_grads(module: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
-    """The train step ``step(state, batch, generator=None, zs=None) ->
-    (state, metrics)``; it updates ``state`` in place.
+    """The train step ``step(state, batch, generator=None, zs=None,
+    aug_draws=None) -> (state, metrics)``; it updates ``state`` in place.
 
-    ``batch`` holds slabs whose leading axis is the microbatch index:
+    ``batch`` holds slabs whose leading axis is the microbatch index (the
+    JAX step's layout, ``ic_gan_tpu/train/step.py:105-127``):
       x          (nD·accD, mb, 3, H, W)  real images in [-1, 1]
-      feats      (nD·accD, mb, F)        real-instance features
-      gen_feats  (nD·accD + accG, mb, F) fresh sampled conditioning
-    z ~ N(0, z_var) is drawn from ``generator`` (a ``torch.Generator`` on the
-    networks' device) once per microbatch, D's first, then G's; ``zs`` may
-    give those draws instead, in that order.  Metrics: ``D_loss_real``,
-    ``D_loss_fake``, ``G_loss`` and the non-finite gradient counts
-    ``D_grad_nonfinite``/``G_grad_nonfinite``, as 0-d tensors on the device;
-    with ``debug_grads``, the raw post-ortho, post-scrub gradients
-    ``d_grads``/``g_grads`` by parameter name.
+      label      (nD·accD, mb)           integer classes (iff class_cond)
+      feats      (nD·accD, mb, F)        real-instance features (iff instance_cond)
+      gen_label  (nD·accD + accG, mb)    fresh sampled conditioning
+      gen_feats  (nD·accD + accG, mb, F)
+    Each microbatch, D's first, then G's, draws z ~ N(0, z_var) and then its
+    DiffAugment draws from ``generator`` (a ``torch.Generator`` on the
+    networks' device), the order of the JAX step's ``z_rng, a_rng =
+    split(acc_rng)``; ``zs`` and ``aug_draws`` (one entry per microbatch, a
+    list of ``data.augment`` draws, None where none is taken) may give them
+    instead.  DiffAugment runs where the JAX step runs it: on the D phase's
+    [fake, real] batch, and on the G phase's fakes unless ``split_D``.
+    Metrics: ``D_loss_real``, ``D_loss_fake``, ``G_loss`` and the
+    non-finite gradient counts ``D_grad_nonfinite``/``G_grad_nonfinite``, as
+    0-d tensors on the device; with ``debug_grads``, the raw post-ortho,
+    post-scrub gradients ``d_grads``/``g_grads`` by parameter name.
     """
-    if cfg.DiffAugment:
-        raise NotImplementedError(
-            "DiffAugment needs data/augment.py, which is not ported yet (ROADMAP.md A.13)")
-    if cfg.class_cond:
-        raise NotImplementedError(
-            "class-conditional training needs SNEmbed, which is not ported yet "
-            "(ROADMAP.md A.3)")
     d_loss_fn = losses_lib.D_LOSSES[cfg.loss]
     g_loss_fn = losses_lib.G_LOSSES[cfg.loss]
     n_acc_d, n_acc_g = cfg.num_D_accumulations, cfg.num_G_accumulations
     nD = cfg.num_D_steps * n_acc_d
 
-    def feats_of(batch, key, i):
-        return batch[key][i] if cfg.instance_cond else None
+    def cond(batch, prefix, i):
+        label = batch[f"{prefix}label"][i] if cfg.class_cond else None
+        feats = batch[f"{prefix}feats"][i] if cfg.instance_cond else None
+        return label, feats
+
+    def cat(a, b):
+        return None if a is None else torch.cat([a, b])
 
     def train_step(state: GANTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
-                   zs: Optional[Sequence[torch.Tensor]] = None):
+                   zs: Optional[Sequence[torch.Tensor]] = None,
+                   aug_draws: Optional[Sequence] = None):
         g, d = state.g.train(), state.d.train()
         mb = batch["x"].shape[1]
-        if zs is None:
-            device = batch["x"].device
-            zs = [torch.randn((mb, dim_z), generator=generator, device=device)
-                  * math.sqrt(cfg.z_var) for _ in range(nD + n_acc_g)]
-        elif len(zs) != nD + n_acc_g:
-            raise ValueError(f"zs must hold {nD + n_acc_g} draws, got {len(zs)}")
+        device = batch["x"].device
+        for name, given in (("zs", zs), ("aug_draws", aug_draws)):
+            if given is not None and len(given) != nD + n_acc_g:
+                raise ValueError(f"{name} must hold {nD + n_acc_g} entries, got {len(given)}")
+
+        def draw_z(i):
+            if zs is not None:
+                return zs[i]
+            return torch.randn((mb, dim_z), generator=generator, device=device) \
+                * math.sqrt(cfg.z_var)
+
+        def augment(x, i):
+            return diff_augment(x, cfg.DiffAugment, generator=generator,
+                                draws=None if aug_draws is None else aug_draws[i])
+
         metrics = {}
 
         # ---- D phase: num_D_steps optimizer steps, each over
@@ -159,18 +181,22 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
             loss_real = loss_fake = 0.0
             for acc in range(n_acc_d):
                 i = d_step * n_acc_d + acc
-                x_real, z = batch["x"][i], zs[i]
-                gf, df = feats_of(batch, "gen_feats", i), feats_of(batch, "feats", i)
+                x_real, z = batch["x"][i], draw_z(i)
+                gl, gf = cond(batch, "gen_", i)
+                dl, df = cond(batch, "", i)
                 with torch.no_grad():
-                    fake = g(z, None, gf)
+                    fake = g(z, gl, gf)
                 if cfg.split_D:
                     # The real pass sees the spectral-norm state the fake
-                    # pass advanced, as in the reference.
-                    d_fake = d(fake, None, gf)
-                    d_real = d(x_real, None, df)
+                    # pass advanced, as in the reference.  DiffAugment
+                    # exists only on the concat path upstream.
+                    d_fake = d(fake, gl, gf)
+                    d_real = d(x_real, dl, df)
                 else:
-                    fts = None if df is None else torch.cat([gf, df])
-                    d_fake, d_real = d(torch.cat([fake, x_real]), None, fts).split(
+                    d_in = torch.cat([fake, x_real])
+                    if cfg.DiffAugment:
+                        d_in = augment(d_in, i)
+                    d_fake, d_real = d(d_in, cat(gl, dl), cat(gf, df)).split(
                         [z.shape[0], x_real.shape[0]])
                 lr_, lf_ = d_loss_fn(d_fake, d_real)
                 ((lr_ + lf_) / n_acc_d).backward()
@@ -188,9 +214,15 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
         g_loss = 0.0
         with frozen(d):
             for acc in range(n_acc_g):
-                gf = feats_of(batch, "gen_feats", nD + acc)
-                fake = g(zs[nD + acc], None, gf)
-                loss = g_loss_fn(d(fake, None, gf)) / n_acc_g
+                i = nD + acc
+                z = draw_z(i)
+                gl, gf = cond(batch, "gen_", i)
+                fake = g(z, gl, gf)
+                # Off under split_D, as in the JAX step: G would otherwise
+                # train against augmented fakes D never saw augmented.
+                if cfg.DiffAugment and not cfg.split_D:
+                    fake = augment(fake, i)
+                loss = g_loss_fn(d(fake, gl, gf)) / n_acc_g
                 loss.backward()
                 g_loss = g_loss + loss.detach()
         metrics["G_loss"] = g_loss

@@ -26,13 +26,13 @@ import os
 import time
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from ic_gan_tpu_torch import resolve_device
 from ic_gan_tpu_torch.data.ada import AugmentPipe
 from ic_gan_tpu_torch.io.checkpoint import save_checkpoint
 from ic_gan_tpu_torch.models import stylegan2 as sg2
+from ic_gan_tpu_torch.train.state import start_profile, step_seed, stop_profile
 from ic_gan_tpu_torch.train.stylegan2_step import (
     SG2TrainConfig,
     SG2TrainState,
@@ -66,12 +66,6 @@ class SG2LoopConfig:
     profile_dir: Optional[str] = None
     profile_start: int = 12
     profile_steps: int = 3
-
-
-def step_seed(seed: int, step: int) -> int:
-    """The seed of step ``step``'s generator: a hash of (seed, step) alone."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
-               >> np.uint64(1))
 
 
 class SG2Trainer:
@@ -165,7 +159,7 @@ class SG2Trainer:
         try:
             while step < total_steps:
                 if cfg.profile_dir and step == cfg.profile_start:
-                    prof = self._start_profile()
+                    prof = start_profile(self.device)
                 batch = self.make_batch()
                 do_pl = (step % t.G_reg_interval) == 0 and t.pl_weight != 0
                 do_r1 = (step % t.D_reg_interval) == 0 and t.r1_gamma != 0
@@ -176,7 +170,7 @@ class SG2Trainer:
                         self.state, batch, self.step_generator(step))
                 step += 1
                 if prof is not None and step == cfg.profile_start + cfg.profile_steps:
-                    self._stop_profile(prof)
+                    stop_profile(prof, self.device, cfg.profile_dir)
                     prof = None
                 if cfg.ada_enabled and step % t.ada_interval == 0:
                     self.state = ada_update(self.state, t, cfg.batch_size)
@@ -209,7 +203,7 @@ class SG2Trainer:
                             return
         finally:
             if prof is not None:
-                self._stop_profile(prof)
+                stop_profile(prof, self.device, cfg.profile_dir)
 
     def _snapshot(self, cur_nimg: int) -> bool:
         """Save a snapshot, run ``eval_fn``, keep the best; True to stop early."""
@@ -232,21 +226,6 @@ class SG2Trainer:
         self.evals_no_improvement += 1
         return (cfg.early_stop_metric_ticks is not None
                 and self.evals_no_improvement >= cfg.early_stop_metric_ticks)
-
-    def _start_profile(self):
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=activities)
-        prof.start()
-        return prof
-
-    def _stop_profile(self, prof):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
-        os.makedirs(self.cfg.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(self.cfg.profile_dir, "trace.json"))
 
     @torch.no_grad()
     def sample_fn(self, n: int, generator: Optional[torch.Generator] = None,

@@ -610,3 +610,137 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
     for key in ("pl_mean", "ada_p", "ada_sign_sum", "ada_count"):
         v = getattr(loaded, key)
         assert v.is_cuda and torch.equal(v, getattr(tr.state, key)), key
+
+
+# --- the BigGAN training loop slice: cc_icgan, DiffAugment, the trainer -------------
+
+def _cc_toy(device, seed=0):
+    cfg = BigGANConfig(resolution=32, G_ch=16, D_ch=16, G_attn="16", D_attn="16", dim_z=40,
+                       shared_dim=16, shared_dim_feat=32, instance_sz=64, class_cond=True,
+                       n_classes=10)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g, d = Generator(cfg, device=device, generator=gen), Discriminator(cfg, device=device,
+                                                                       generator=gen)
+    for m in list(g.modules()) + list(d.modules()):
+        if isinstance(m, SelfAttention):
+            m.gamma.data.fill_(0.5)
+    return cfg, g, d
+
+
+def test_toy_cc_icgan_diffaugment_step_card_matches_cpu():
+    """One f32 cc_icgan step with DiffAugment from the same weights, batch, z
+    and augmentation draws on the card and on the CPU: losses 1e-4
+    relative, raw gradients 1e-2 of each tensor's largest entry + 1e-5 of
+    the network's (chip_smoke.py phase 8's bars)."""
+    from ic_gan_tpu_torch.data.augment import augment_draws
+
+    policy = "color,translation,cutout"
+    tcfg = TrainConfig(ema_start=0, adam_eps=1e-3, class_cond=True, DiffAugment=policy)
+    cfg, g_cpu, d_cpu = _cc_toy("cpu")
+    gen = torch.Generator().manual_seed(1)
+    mb = 4
+    batch = dict(x=torch.rand((1, mb, 3, 32, 32), generator=gen) * 2 - 1,
+                 label=torch.randint(0, 10, (1, mb), generator=gen),
+                 feats=torch.randn((1, mb, 64), generator=gen),
+                 gen_label=torch.randint(0, 10, (2, mb), generator=gen),
+                 gen_feats=torch.randn((2, mb, 64), generator=gen))
+    zs = [torch.randn((mb, cfg.effective_dim_z), generator=gen) for _ in range(2)]
+    aug = [augment_draws(policy, torch.empty((n, 3, 32, 32)), gen) for n in (2 * mb, mb)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = Generator(cfg, device=dev, generator=torch.Generator(device=dev))
+        d = Discriminator(cfg, device=dev, generator=torch.Generator(device=dev))
+        g.load_state_dict(g_cpu.state_dict())
+        d.load_state_dict(d_cpu.state_dict())
+        state = GANTrainState.create(g, d, tcfg.g_optimizer(), tcfg.d_optimizer())
+        fwd, bwd = sagan_attention_fwd.launches, sagan_attention_bwd.launches
+        _, m = make_train_step(tcfg, cfg.effective_dim_z, debug_grads=True)(
+            state, {k: v.to(dev) for k, v in batch.items()}, zs=[z.to(dev) for z in zs],
+            aug_draws=aug)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert sagan_attention_fwd.launches > fwd and sagan_attention_bwd.launches > bwd
+        out[dev] = m
+    for k in ("D_loss_real", "D_loss_fake", "G_loss"):
+        a, b = out["cuda"][k].item(), out["cpu"][k].item()
+        assert abs(a - b) <= 1e-4 * max(abs(b), 1e-6), k
+    for which in ("d_grads", "g_grads"):
+        ref = out["cpu"][which]
+        top = max(v.abs().max().item() for v in ref.values())
+        for k, r in ref.items():
+            err = (out["cuda"][which][k].cpu() - r).abs().max().item()
+            assert err <= 1e-2 * r.abs().max().item() + 1e-5 * top, (which, k, err)
+    assert out["cpu"]["d_grads"]["embed.weight"].abs().max() > 0
+
+
+class _CardClassDataset:
+    """Images, labels and features on the card, indices from ``rng``."""
+
+    which_nn_balance = "instance_balance"
+
+    def __init__(self, n=16, seed=0):
+        import numpy as np
+
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.images = torch.rand((n, 3, 32, 32), generator=gen, device="cuda") * 2 - 1
+        self.labels = torch.randint(0, 10, (n,), generator=gen, device="cuda")
+        self.feats = torch.randn((n, 64), generator=gen, device="cuda")
+        self.rng = np.random.default_rng(seed)
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def _draw(self, k):
+        return torch.as_tensor(self.rng.integers(0, self.n, k), device="cuda")
+
+    def sample_batch(self, k, weights=None):
+        from ic_gan_tpu_torch.data.datasets import Batch
+
+        i = self._draw(k)
+        return Batch(self.images[i], self.labels[i], self.feats[i], None)
+
+    def sample_conditioning_instance_balance(self, k, weights=None):
+        i = self._draw(k)
+        return self.labels[i], self.feats[i]
+
+
+def test_toy_biggan_loop_saves_and_resumes_on_the_card(tmp_path):
+    """``Trainer.run``: two epochs of two cc_icgan + DiffAugment steps in
+    bf16, B1 and B2 in every step; the snapshot resumes into a fresh
+    trainer bit for bit, history and dataset RNG included."""
+    from ic_gan_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = BigGANConfig(resolution=32, G_ch=16, D_ch=16, G_attn="16", D_attn="16", dim_z=40,
+                       shared_dim=16, shared_dim_feat=32, instance_sz=64, class_cond=True,
+                       n_classes=10, dtype=torch.bfloat16)
+    tcfg = TrainConfig(ema_start=0, class_cond=True, DiffAugment="color,translation,cutout")
+    lcfg = TrainerConfig(experiment_name="toy", weights_root=str(tmp_path / "w"),
+                         logs_root=str(tmp_path / "l"), num_epochs=2, test_every=10,
+                         num_save_copies=1, seed=3, batch_size=4, log_every=1,
+                         sv_log_interval=1, enable_tb=False)
+    tr = Trainer(cfg, tcfg, lcfg, _CardClassDataset(), device="cuda")
+    per_step = []
+    real = tr.step_fn
+
+    def step(state, batch, generator):
+        before = (sagan_attention_fwd.launches, sagan_attention_bwd.launches)
+        out = real(state, batch, generator)
+        per_step.append((sagan_attention_fwd.launches - before[0],
+                         sagan_attention_bwd.launches - before[1]))
+        return out
+
+    tr.step_fn = step
+    tr.run(steps_per_epoch=2)
+    torch.cuda.synchronize()
+    n_fwd = sum(isinstance(m, SelfAttention) for m in list(tr.g.modules()) + list(tr.d.modules()))
+    assert len(per_step) == 4 and all(f == 2 * n_fwd and b > 0 for f, b in per_step), per_step
+    assert tr.history["itr"] == 4 and tr.history["epoch"] == 2
+    fresh = Trainer(cfg, tcfg, lcfg, _CardClassDataset(), device="cuda")
+    fresh.resume()
+    assert fresh.history == tr.history
+    assert fresh.dataset.rng.bit_generator.state == tr.dataset.rng.bit_generator.state
+    for key in ("g", "d", "g_ema"):
+        a, b = getattr(tr.state, key).state_dict(), getattr(fresh.state, key).state_dict()
+        assert all(b[k].is_cuda and torch.equal(v, b[k]) for k, v in a.items()), key
+    assert fresh.state.step == 4

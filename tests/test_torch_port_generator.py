@@ -259,12 +259,22 @@ def test_accumulate_standing_stats_averages(jax_model):
                if isinstance(m, ConditionalBatchNorm))
 
 
-# --- (l) unsupported norm styles -----------------------------------------------
+# --- (l) norm styles: each builds and runs; a misspelt one raises ----------------
 
 @pytest.mark.parametrize("style", ["in", "gn", "nonorm"])
 def test_unported_norm_style_raises(style):
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tbiggan.Generator(port_cfg(norm_style=style), device="cpu")
+    """Every style is ported now (the parity tests are in
+    ``test_torch_port_classcond.py``): the style's G builds and gives finite
+    images of the right shape, and a style no branch knows raises."""
+    g = tbiggan.Generator(port_cfg(norm_style=style), device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(1)
+    with torch.no_grad():
+        out = g(torch.from_numpy(rng.randn(2, JCFG.effective_dim_z).astype(np.float32)), None,
+                torch.from_numpy(rng.randn(2, JCFG.instance_sz).astype(np.float32)))
+    assert out.shape == (2, 3, 32, 32) and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="unknown norm_style"):
+        tbiggan.Generator(port_cfg(norm_style="x" + style), device="cpu")
 
 
 def test_training_mode_updates_state_and_matches_jax(jax_model):
@@ -307,15 +317,19 @@ def test_port_imports_no_jax():
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ic_gan_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) >= 20 and os.path.exists(files[0])
-    # The walk reaches every slice's modules, the StyleGAN2-ADA ones and the
-    # loop's (utils/, cli/, the dataset, checkpoints, the importer) included.
+    # The walk reaches every slice's modules, the StyleGAN2-ADA ones, the
+    # StyleGAN2 loop's (utils/, cli/, the dataset, checkpoints, the importer)
+    # and the BigGAN loop's (DiffAugment, distributions, the .pth loaders,
+    # the trainer and its CLI) included.
     rel = {os.path.relpath(f, os.path.join(ROOT, "ic_gan_tpu_torch")) for f in files}
     assert {"data/ada.py", "data/fast_warp.py", "ops/row_shift.py", "ops/bias_act.py",
             "ops/conv_resample.py", "models/stylegan2.py", "train/stylegan2_step.py",
             "train/stylegan2_trainer.py", "utils/logging.py", "utils/tensorboard.py",
             "cli/config.py", "cli/train_stylegan2.py", "data/datasets.py",
             "data/feature_bank.py", "io/checkpoint.py", "io/graphdef.py",
-            "io/stylegan_import.py"} <= rel
+            "io/stylegan_import.py", "data/augment.py", "data/distributions.py",
+            "io/torch_import.py", "train/trainer.py", "cli/train.py",
+            "cli/inference.py"} <= rel
     bad = {(os.path.relpath(f, ROOT), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad

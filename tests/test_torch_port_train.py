@@ -269,10 +269,23 @@ def test_discriminator_forward_matches_jax(models, train):
 
 
 def test_unported_discriminator_options_raise():
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tbiggan.Discriminator(port_cfg(class_cond=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        tstep.make_train_step(tstep.TrainConfig(DiffAugment="translation"), 35)
+    """The class heads and DiffAugment are ported (``test_torch_port_
+    classcond.py``, ``test_torch_port_train_cc.py``); what still raises in
+    the BigGAN training path is data parallelism (ROADMAP.md A.9) and the
+    BigGAN-deep backbone (A.11)."""
+    from ic_gan_tpu_torch.cli.config import split_config
+    from ic_gan_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = port_cfg(class_cond=True)
+    d = tbiggan.Discriminator(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert d.embed.weight.shape == (cfg.n_classes, cfg.d_arch["out_channels"][-1] // 2)
+    tstep.make_train_step(tstep.TrainConfig(DiffAugment="translation"), 35)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        Trainer(port_cfg(), tstep.TrainConfig(), TrainerConfig(n_devices=2), None, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.11"):
+        Trainer(object(), tstep.TrainConfig(), TrainerConfig(), None, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.11"):
+        split_config({"model": "BigGANdeep"})
 
 
 # --- one whole train step ------------------------------------------------------
