@@ -52,20 +52,35 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    G and D regularized every 2 and 3 steps, so that every variant runs; B3
    and both B4 kernels launch in each, the main and pl+r1 steps as often as
    phase 10 derives; ADA's p, the tick records (s/kimg), the snapshots (size,
-   save and load time), a bit-for-bit reload into a fresh trainer and one
-   more step from it against the live one; then ``make_sampler`` over the
-   EMA G with ``truncation_psi`` 0.7 and constant noise against direct calls;
+   save and load time), the CLI's snapshot eval (FID and IS of 256 EMA
+   images, the best snapshot kept), a bit-for-bit reload into a fresh
+   trainer and one more step from it against the live one; then
+   ``make_sampler`` over the EMA G with ``truncation_psi`` 0.7 and constant
+   noise against direct calls;
 13. the BigGAN training loop: ``Trainer.run`` for 2 epochs of 3 steps at
    phase 7's model with upstream's cc_icgan heads (1000 classes, 2048-d
    features) and DiffAugment, from an in-memory dataset drawn on the card;
    B1 and B2 launch 4 and 3 times in every step; img/s of each epoch, the
-   snapshot (size, save and load time), a bit-for-bit reload (history and
-   the dataset's RNG included) and one more step from it against the live
-   one; ``make_sampler`` over the folded bf16 EMA G with labels and features
-   against direct calls.
+   snapshot (size, save and load time), the eval after the second epoch
+   (``make_train_eval_fn``, 1,024 images: FID and IS in the test log, the
+   best copy saved), a bit-for-bit reload (the live history, less what the
+   eval writes after the snapshot, and the live dataset RNG, which the eval
+   leaves alone) and one more step from it against the live one;
+   ``make_sampler`` over the folded bf16 EMA G with labels and features
+   against direct calls;
+14. the eval path: InceptionV3 on the card against the JAX package's golden
+   outputs (``tests/golden/inception_golden.npz``), against the CPU in f32
+   and against its own f32 in the bf16 mode, and timed alone in NCHW and
+   channels-last; the FID tail (``fid_is_device``) against float64 on the
+   host at full rank and rank-deficient; then ``evaluate_generator`` over
+   ``make_fused_feature_fn`` of phase 5's sampler for 10,000 images at batch
+   128, Inception in f32 and in bf16: img/s, the tail's time, peak memory,
+   B1's launches (one a batch), the FID recomputed in float64 on the host,
+   and the FID between the two Inception modes.
 
 ``--profile`` adds device-time breakdowns of one sampler batch, one BigGAN
-train step and one StyleGAN2 main and reg step, with the kernels launched
+train step, one StyleGAN2 main and reg step and one eval batch (G and
+Inception, and Inception alone, in each mode), with the kernels launched
 inside ``BiasAct.backward`` (its ``bias_act_bwd`` range) summed apart.  The
 last three lines of standard output are the card (name, power limit), one
 JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
@@ -85,6 +100,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -93,11 +109,27 @@ from torch.nn.utils import skip_init
 
 from ic_gan_tpu_torch.data.ada import AugmentPipe
 from ic_gan_tpu_torch.data.augment import augment_draws
+from ic_gan_tpu_torch.cli import train_stylegan2 as sg2_cli
 from ic_gan_tpu_torch.data.datasets import Batch
+from ic_gan_tpu_torch.eval import pipeline as eval_pipeline
+from ic_gan_tpu_torch.eval.fid import (
+    fid_is_device,
+    full_f32_matmul,
+    inception_score,
+    trace_sqrtm_product,
+)
+from ic_gan_tpu_torch.eval.pipeline import (
+    InceptionEvaluator,
+    evaluate_generator,
+    make_fused_feature_fn,
+    make_train_eval_fn,
+    moments_filename,
+)
 from ic_gan_tpu_torch.io.checkpoint import load_checkpoint
 from ic_gan_tpu_torch.io.deploy import cast_params, fold_spectral_norm, make_sampler
 from ic_gan_tpu_torch.models import stylegan2 as sg2
 from ic_gan_tpu_torch.models.biggan import BigGANConfig, Discriminator, Generator
+from ic_gan_tpu_torch.models.inception import InceptionV3
 from ic_gan_tpu_torch.models.layers import SelfAttention
 from ic_gan_tpu_torch.ops import _build
 from ic_gan_tpu_torch.ops import bias_act as ba
@@ -260,11 +292,47 @@ SG2_LOOP_TRAIN = dict(G_reg_interval=2, D_reg_interval=3, ada_interval=2, ada_ki
 SG2_LOOP_TICK_KIMG = 0.032
 SG2_LOOP_IMAGES = 64
 SG2_LOOP_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_sg2_loop")
+
+# --- the eval path (phase 14) -----------------------------------------------------
+# The JAX package's eval bench (benchmarks/bench_eval_fid.py:35-140): 10,000
+# images of phase 5's folded bf16 256² G at batch 128 through Inception at
+# 299² (f32, then the bf16 deployment mode; random weights from a seed),
+# then FID against synthetic reference moments and IS, on the card.
+EVAL_IMAGES = 10000
+EVAL_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                           "inception_golden.npz")
+# The golden bars (tests/test_inception_graph.py:test_golden_outputs): pool
+# atol 2e-4 + rtol 2e-3, logits atol 2e-3 + rtol 2e-3.  Card against CPU,
+# f32: the pool within 1e-3 of its largest entry; the bf16 mode against the
+# card's f32: JAX's drift bars (tests/test_metrics_and_tools.py:469-470), max
+# 0.15 and mean 0.02 of the mean |pool|.
+GOLDEN_POOL, GOLDEN_LOGITS = (2e-4, 2e-3), (2e-3, 2e-3)
+INCEPTION_F32_REL, INCEPTION_BF16_MAX, INCEPTION_BF16_MEAN = 1e-3, 0.15, 0.02
+INCEPTION_PARITY_IMAGES, INCEPTION_PARITY_RES = 8, 256
+# The FID tail against float64 on the host: 10,000 pools (full rank,
+# Newton-Schulz) and 512 (rank-deficient: its eigenvalue path), 1e-3 relative.
+EVAL_TAIL_POOLS = (10000, 512)
+EVAL_REL = 1e-3
+# The loops' eval: reference moments from a seed under a data root of the
+# build directory; 1,024 images for the BigGAN loop (phase 13), 256 for the
+# StyleGAN2 loop (phase 12), as their CLIs build the eval.
+EVAL_DATA_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_eval_data")
+BIGGAN_LOOP_EVAL_IMAGES, SG2_LOOP_EVAL_IMAGES = 1024, 256
+# What ``Trainer.test`` writes into the history after the snapshot.
+EVAL_HISTORY_KEYS = ("best_IS", "best_FID", "save_best_num", "epochs_no_improvement")
 DEV = "cuda"         # the kernel phases' device (the CPU only to rehearse them)
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+CARD = ""            # the card's name and power limit, from phase 1
+
+
+def log_card(msg: str):
+    """``msg`` with the card's name and power limit."""
+    log(f"{msg} [{CARD}]")
 
 
 def reset_counts():
@@ -771,6 +839,7 @@ _KERNEL_CLASSES = (
     ("reductions", ("reduce_kernel",)),
     ("copies and concatenation", ("copy", "Cat")),
     ("optimizer", ("multi_tensor", "adam", "Adam")),
+    ("pooling and resize", ("pool", "upsample")),
     ("elementwise", ("elementwise",)),
 )
 
@@ -1562,7 +1631,7 @@ class CardDataset:
     """``SG2_LOOP_IMAGES`` images in [-1, 1] and unit instance features drawn
     from a seed on the card, behind the two methods the trainer calls on an
     ``HDF5Dataset`` (``sample_batch``, ``sample_conditioning_instance_balance``);
-    indices from a CPU generator."""
+    indices from a numpy stream, ``rng``, as an ``HDF5Dataset`` draws them."""
 
     def __init__(self, res, h_dim, device, seed):
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -1570,11 +1639,11 @@ class CardDataset:
                                  device=device) * 2 - 1
         self.feats = F.normalize(torch.randn((SG2_LOOP_IMAGES, h_dim), generator=gen,
                                              device=device), dim=1)
-        self.index = torch.Generator().manual_seed(seed)
+        self.rng = np.random.default_rng(seed)
 
     def _draw(self, n):
-        return torch.randint(0, SG2_LOOP_IMAGES, (n,), generator=self.index).to(
-            self.images.device)
+        return torch.as_tensor(self.rng.integers(0, SG2_LOOP_IMAGES, n),
+                               device=self.images.device)
 
     def sample_batch(self, n):
         i = self._draw(n)
@@ -1614,8 +1683,14 @@ def phase_sg2_loop(device) -> dict:
         kimg_per_tick=SG2_LOOP_TICK_KIMG, snapshot_ticks=1, augment_spec="bgc",
         augment_p_init=SG2_P, seed=31)
     dataset = CardDataset(cfg.img_resolution, cfg.h_dim, device, seed=32)
+    evals, snapshots = [], []
+    eval_fn = timed_calls(sg2_cli.make_eval_fn(dict(
+        data_root=write_eval_moments(cfg.img_resolution), resolution=cfg.img_resolution,
+        num_inception_images=SG2_LOOP_EVAL_IMAGES, eval_batch_size=SG2_LOOP_EVAL_IMAGES // 4),
+        device), evals)
     t0 = time.perf_counter()
-    tr = sg2_loop.SG2Trainer(cfg, tcfg, lcfg, dataset, device=device)
+    tr = sg2_loop.SG2Trainer(cfg, tcfg, lcfg, dataset, eval_fn=eval_fn, device=device)
+    tr._snapshot = timed_calls(tr._snapshot, snapshots)
     expected = sg2_expected_launches(tr.g, tr.d)
     sync()
     log(f"sg2 loop: SG2Trainer at {cfg.img_resolution}^2 (h_dim {cfg.h_dim}, channel_base "
@@ -1643,13 +1718,14 @@ def phase_sg2_loop(device) -> dict:
         updates.append((state.step, *before, state.ada_p.item()))
         return state
 
-    def save_checkpoint(*args, **kw):
+    def save_checkpoint(root, name, *args, **kw):
         sync()
         t1 = time.perf_counter()
-        path = real_save(*args, **kw)
-        saves.append(time.perf_counter() - t1)
+        path = real_save(root, name, *args, **kw)
+        (saves if name == "network-snapshot" else best_saves).append(time.perf_counter() - t1)
         return path
 
+    best_saves = []
     tr.steps = {k: counting(k, fn) for k, fn in tr.steps.items()}
     sg2_loop.ada_update, sg2_loop.save_checkpoint = ada_update, save_checkpoint
     try:
@@ -1702,6 +1778,19 @@ def phase_sg2_loop(device) -> dict:
         raise AssertionError(f"sg2 loop tick records {ticks}")
     if len(saves) != 4:
         raise AssertionError(f"sg2 loop saved {len(saves)} snapshots, expected 4 (one a tick)")
+    # The snapshot eval as the CLI builds it, after each snapshot: FID and IS
+    # finite in the metric log, the best snapshot saved after the first.
+    with open(os.path.join(tr.run_dir, "metric-fid.jsonl")) as f:
+        results = [json.loads(line)["results"] for line in f]
+    fids = [r["FID"] for r in results]
+    improved = sum(f < min(fids[:i], default=math.inf) for i, f in enumerate(fids))
+    eval_launches = {k: sum(e["launches"][k] for e in evals) for k in evals[0]["launches"]}
+    if len(evals) != 4 or len(results) != 4 or len(best_saves) != improved \
+            or not all(math.isfinite(r[k]) for r in results for k in ("FID", "IS_mean")) \
+            or tr.best_fid != min(fids) or eval_launches["B4"] == 0 \
+            or not os.path.isdir(os.path.join(tr.run_dir, "best-network-snapshot")):
+        raise AssertionError(f"sg2 loop eval: {results}, {len(best_saves)} best saves, "
+                             f"launches {eval_launches}")
 
     # The snapshot into a fresh trainer (other seed), bit for bit.
     snap = os.path.join(tr.run_dir, "network-snapshot")
@@ -1782,17 +1871,18 @@ def phase_sg2_loop(device) -> dict:
     same_batch = torch.equal(got[:16], direct[:16])
     shutil.rmtree(SG2_LOOP_DIR, ignore_errors=True)
 
-    # A tick's time holds the snapshot saved at the tick before it (snapshot_ticks
-    # 1): the loop's own s/kimg is that less the save.
-    net = [(r["sec_per_kimg"] * (r["kimg"] - prev["kimg"]) - save) / (r["kimg"] - prev["kimg"])
-           for prev, r, save in zip(ticks, ticks[1:], saves)]
+    # A tick's time holds the snapshot of the tick before it (snapshot_ticks
+    # 1): its save, eval and any best save.  The loop's own s/kimg is that
+    # less the snapshot.
+    net = [(r["sec_per_kimg"] * (r["kimg"] - prev["kimg"]) - snap["s"]) / (r["kimg"] - prev["kimg"])
+           for prev, r, snap in zip(ticks, ticks[1:], snapshots)]
     log("sg2 loop variants and launches per step: " + "; ".join(
         f"{v} B3 {g['B3']} {o} B4 {g['B4']} B4 backward {g['B4bwd']}"
         for v, (g, o) in by_variant.items()) + " (main and main+pl+r1 as phase 10 derives)")
     log(f"sg2 loop {SG2_LOOP_STEPS} steps in {wall:.2f} s; ticks (kimg, s/kimg, augment_p): "
         + ", ".join(f"({r['kimg']}, {r['sec_per_kimg']:.3f}, {r['augment_p']:.4f})"
                     for r in ticks)
-        + f"; less the snapshot saved in ticks 1-3: "
+        + f"; less the snapshot (save, eval, best save) of ticks 1-3: "
         + ", ".join(f"{v:.3f}" for v in net) + " s/kimg"
         + "; ada_update after steps 2, 4, 6 as its rule gives")
     log(f"sg2 loop snapshot: {size / 2 ** 20:.1f} MiB; save {1e3 * statistics.median(saves):.0f} "
@@ -1805,9 +1895,14 @@ def phase_sg2_loop(device) -> dict:
         f"noise_mode const) for 20 images against direct calls: max|Δ| full batch "
         f"{dev_[:16].max().item():.3e} (bit for bit: {same_batch}), padded tail "
         f"{dev_[16:].max().item():.3e}; bar atol {BF16_TOL['atol']} + rtol {BF16_TOL['rtol']}")
+    log_card(f"sg2 loop eval (the CLI's eval_fn, {SG2_LOOP_EVAL_IMAGES} EMA images at batch "
+        f"{SG2_LOOP_EVAL_IMAGES // 4}, Inception f32) after each snapshot: "
+        + ", ".join(f"{e['s']:.3f}" for e in evals) + " s; FID "
+        + ", ".join(f"{f:.4f}" for f in fids) + f"; {len(best_saves)} best snapshots saved ("
+        + ", ".join(f"{1e3 * t:.0f}" for t in best_saves) + f" ms); launches {eval_launches}")
     return dict(launches=launches, by_variant=by_variant, ticks=ticks, net_s_per_kimg=net,
                 snapshot_mib=size / 2 ** 20, save_ms=1e3 * statistics.median(saves),
-                load_ms=1e3 * load_s)
+                load_ms=1e3 * load_s, eval_s=[e["s"] for e in evals])
 
 
 class BigGANCardDataset:
@@ -1849,7 +1944,7 @@ def phase_biggan_loop(device) -> dict:
     conditioning and DiffAugment: B1 and B2 launch 4 and 3 times a step as
     in phase 7; img/s of each epoch from the loop's own clock (the saves
     after it left out); the snapshot's size and save/load time; a bit-for-bit
-    reload (history and the dataset's RNG included) and one more step from
+    reload (the live history and dataset RNG included) and one more step from
     it against the live one; ``make_sampler`` over the folded bf16 EMA G
     with labels and features against direct calls."""
     shutil.rmtree(BIGGAN_LOOP_DIR, ignore_errors=True)
@@ -1858,11 +1953,16 @@ def phase_biggan_loop(device) -> dict:
     lcfg = biggan_loop.TrainerConfig(
         experiment_name="biggan_loop", weights_root=os.path.join(BIGGAN_LOOP_DIR, "weights"),
         logs_root=os.path.join(BIGGAN_LOOP_DIR, "logs"), num_epochs=BIGGAN_LOOP_EPOCHS,
-        test_every=BIGGAN_LOOP_EPOCHS + 1, save_every=1, num_save_copies=1, seed=41,
+        test_every=BIGGAN_LOOP_EPOCHS, save_every=1, num_save_copies=1, seed=41,
         batch_size=TRAIN_MB, log_every=1, sv_log_interval=1)
     dataset = BigGANCardDataset(cfg.resolution, cfg.n_classes, cfg.instance_sz, device, seed=42)
+    evals = []
+    eval_fn = timed_calls(make_train_eval_fn(dict(
+        data_root=write_eval_moments(cfg.resolution), resolution=cfg.resolution,
+        num_inception_images=BIGGAN_LOOP_EVAL_IMAGES, eval_batch_size=SAMPLER_BATCH),
+        device=device), evals)
     t0 = time.perf_counter()
-    tr = biggan_loop.Trainer(cfg, tcfg, lcfg, dataset, device=device)
+    tr = biggan_loop.Trainer(cfg, tcfg, lcfg, dataset, eval_fn=eval_fn, device=device)
     set_gamma(tr.state.g, tr.state.d, tr.state.g_ema)
     sync()
     n_params = {k: sum(p.numel() for p in getattr(tr.state, k).parameters()) for k in ("g", "d")}
@@ -1907,10 +2007,22 @@ def phase_biggan_loop(device) -> dict:
             c != dict(B1=4, B2=3, B3=0, B4=0, B4bwd=0) for c in per_step):
         raise AssertionError(f"biggan loop launches per step {per_step}: expected B1 4 and "
                              "B2 3 (phase 7's), B3 and B4 none")
+    # The eval after the last epoch: its metrics in the test log, and the
+    # first best copy saved (a snapshot and its copy every epoch, then best0).
     h = tr.history
-    if (h["itr"], h["epoch"], h["save_num"]) != (n_steps, BIGGAN_LOOP_EPOCHS, 0) \
-            or len(saves) != 2 * BIGGAN_LOOP_EPOCHS:
-        raise AssertionError(f"biggan loop history {h}, {len(saves)} saves")
+    if (h["itr"], h["epoch"], h["save_num"], h["save_best_num"]) != (
+            n_steps, BIGGAN_LOOP_EPOCHS, 0, 1) or len(saves) != 2 * BIGGAN_LOOP_EPOCHS + 1 \
+            or not os.path.isdir(os.path.join(lcfg.weights_root, "biggan_loop_best0")):
+        raise AssertionError(f"biggan loop history {h}, {len(saves)} saves, "
+                             f"{os.listdir(lcfg.weights_root)}")
+    with open(os.path.join(lcfg.logs_root, "biggan_loop", "biggan_loop_test_log.jsonl")) as f:
+        tests = [json.loads(line) for line in f]
+    eval_b1 = evals[0]["launches"]["B1"] if evals else 0
+    if len(evals) != 1 or len(tests) != 1 or tests[0]["itr"] != n_steps \
+            or not all(math.isfinite(tests[0][k]) for k in ("FID", "IS_mean", "IS_std")) \
+            or tests[0]["FID"] != h["best_FID"] \
+            or eval_b1 != math.ceil(BIGGAN_LOOP_EVAL_IMAGES / SAMPLER_BATCH):
+        raise AssertionError(f"biggan loop eval: {evals}, test log {tests}")
     with open(os.path.join(lcfg.logs_root, "biggan_loop", "biggan_loop_log.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r for r in recs if "G_loss" in r]
@@ -1936,9 +2048,14 @@ def phase_biggan_loop(device) -> dict:
     live, back = _state_tensors(tr.state), _state_tensors(fresh.state)
     diff = [k for k, v in live.items()
             if not (torch.equal(v, back[k]) if torch.is_tensor(v) else v == back[k])]
-    rng_state = fresh.dataset.rng.bit_generator.state
-    if set(live) != set(back) or diff or fresh.history != tr.history \
-            or rng_state != tr.dataset.rng.bit_generator.state:
+    # The snapshot comes before the eval, which then writes its results into
+    # the history (as in the reference): those keys aside, the reload holds
+    # the live history, and the live sampler's stream, which the eval
+    # leaves alone.
+    after_save = {k: v for k, v in fresh.history.items() if k not in EVAL_HISTORY_KEYS}
+    if set(live) != set(back) or diff or after_save != {
+            k: v for k, v in tr.history.items() if k not in EVAL_HISTORY_KEYS} \
+            or fresh.dataset.rng.bit_generator.state != tr.dataset.rng.bit_generator.state:
         raise AssertionError(f"biggan snapshot reload differs in {diff[:5]} or its history or "
                              "dataset RNG state")
     # One more step from each, same batch and generator: phase 12's bars.
@@ -2010,22 +2127,318 @@ def phase_biggan_loop(device) -> dict:
     log(f"biggan loop snapshot: {size / 2 ** 20:.1f} MiB; save {1e3 * statistics.median(saves):.0f} "
         f"ms (median of {len(saves)}: " + ", ".join(f"{1e3 * t:.0f}" for t in saves)
         + f"), load {1e3 * load_s:.0f} ms ({size / 2 ** 30 / max(load_s, 1e-9):.2f} GiB/s); "
-        f"reload bit for bit in {len(_state_tensors(tr.state))} tensors and counts, history "
-        f"and dataset RNG; the next step from it against the live one's (cuDNN deterministic): "
+        f"reload bit for bit in {len(_state_tensors(tr.state))} tensors and counts, the live "
+        f"history (less the eval's {len(EVAL_HISTORY_KEYS)} keys) and the live dataset RNG, "
+        f"which the eval leaves alone; the next step from it against the live one's (cuDNN deterministic): "
         f"worst relative |Δ| losses {worst_loss:.3e}, state {worst['state']:.3e} (bars 1e-4, "
         f"{PARITY_STATE_REL:g}); weights after Adam {worst['weights']:.3e} of a tensor's "
         f"largest entry (logged)")
+    log_card(f"biggan loop eval (make_train_eval_fn, {BIGGAN_LOOP_EVAL_IMAGES} EMA images at batch "
+        f"{SAMPLER_BATCH}, Inception f32): {evals[0]['s']:.3f} s, the best copy's save "
+        f"{1e3 * saves[-1]:.0f} ms after it; FID {tests[0]['FID']:.4f}, IS "
+        f"{tests[0]['IS_mean']:.4f} ± {tests[0]['IS_std']:.4f} in the test log; best0 saved; "
+        f"B1 launches {eval_b1} (one a batch)")
     log(f"biggan sampler: make_sampler(folded bf16 EMA G, batch_size {SAMPLER_BATCH}) for "
         f"{n} images with labels and features against direct calls: full batch bit for bit; "
         f"padded tail max|Δ| {dev_[SAMPLER_BATCH:].max().item():.3e} (bar atol "
         f"{BF16_TOL['atol']} + rtol {BF16_TOL['rtol']}); B1 launches {sampler_b1}")
     return dict(launches=launches, per_step=per_step[0], epochs=epochs,
                 snapshot_mib=size / 2 ** 20, save_ms=1e3 * statistics.median(saves),
-                load_ms=1e3 * load_s)
+                load_ms=1e3 * load_s, eval_s=evals[0]["s"])
+
+
+# --- the eval path -------------------------------------------------------------------
+
+def synthetic_inception_state(net) -> dict:
+    """``tests/test_inception_graph.py:synthetic_state_dict`` on the names and
+    shapes of the port's own state dict: each tensor from
+    ``RandomState(crc32(name))``, running variances |x| + 0.5, conv and fc
+    weights × 0.05 (the aux head and the counters it also draws touch no
+    other tensor)."""
+    sd = {}
+    for name, t in net.state_dict().items():
+        rng = np.random.RandomState(zlib.crc32(name.encode()) % (2 ** 31))
+        v = np.asarray(rng.randn(*t.shape), np.float32)
+        if name.endswith("running_var"):
+            v = np.abs(v) + 0.5
+        elif name.endswith("conv.weight") or name == "fc.weight":
+            v = v * 0.05
+        sd[name] = torch.from_numpy(v)
+    return sd
+
+
+def reference_moments(dim, seed):
+    """Synthetic reference moments in float64: mu ~ N(0, 0.1²), sigma =
+    A·Aᵀ/dim + 0.1·I with A (dim, dim/4) ~ N(0, 1)."""
+    rng = np.random.RandomState(seed)
+    a = rng.randn(dim, dim // 4)
+    return rng.randn(dim) * 0.1, a @ a.T / dim + 0.1 * np.eye(dim)
+
+
+def write_eval_moments(resolution) -> str:
+    """The loops' reference moments, as ``eval.pipeline.moments_filename``
+    names them, under ``EVAL_DATA_DIR``; returns the directory."""
+    os.makedirs(EVAL_DATA_DIR, exist_ok=True)
+    mu, sigma = reference_moments(2048, 61)
+    np.savez(os.path.join(EVAL_DATA_DIR, moments_filename(resolution)), mu=mu, sigma=sigma)
+    return EVAL_DATA_DIR
+
+
+def moments_f64(pools):
+    p = np.asarray(pools, np.float64)
+    return p.mean(0), np.cov(p, rowvar=False)
+
+
+def fid_f64(mu1, s1, mu2, s2) -> float:
+    """FID in float64 on the host, the trace tr √(√s1·s2·√s1) from two
+    symmetric eigendecompositions (exact at any rank)."""
+    w, v = np.linalg.eigh(s1)
+    r = (v * np.sqrt(np.clip(w, 0, None))) @ v.T
+    lam = np.linalg.eigvalsh(r @ s2 @ r)
+    d = mu1 - mu2
+    return float(d @ d + np.trace(s1) + np.trace(s2) - 2 * np.sqrt(np.clip(lam, 0, None)).sum())
+
+
+def timed_calls(fn, record: list):
+    """``fn`` with the host time of each call (ending in a synchronize) and
+    the kernel launches inside it appended to ``record``."""
+    def call(*args, **kw):
+        sync()
+        c0, t0 = counts(), time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        c1 = counts()
+        record.append(dict(s=time.perf_counter() - t0, launches={k: c1[k] - c0[k] for k in c0}))
+        return out
+    return call
+
+
+def _golden_and_card_against_cpu(device) -> dict:
+    """Inception on the card against the JAX package's golden outputs, and
+    against the CPU (f32) and its own f32 (the bf16 mode) at the synthetic
+    and at random weights; then one batch of 128 at 299² timed in NCHW and
+    channels-last."""
+    net = InceptionV3(device=device)
+    sd = synthetic_inception_state(net)
+    net.load_state_dict(sd)
+    golden = np.load(EVAL_GOLDEN)
+    x = np.random.RandomState(1234).uniform(-1.0, 1.0, (2, 75, 75, 3)).astype(np.float32)
+    with torch.inference_mode():
+        pool, logits = (t.cpu().numpy() for t in net(
+            torch.from_numpy(x).permute(0, 3, 1, 2).to(device)))
+    worst = {}
+    for name, got, (atol, rtol) in (("pool", pool, GOLDEN_POOL), ("logits", logits, GOLDEN_LOGITS)):
+        ref = golden[name]
+        ratio = (np.abs(got - ref) / (atol + rtol * np.abs(ref))).max()
+        worst[name] = (float(np.abs(got - ref).max()), float(ratio))
+        if ratio > 1:
+            raise AssertionError(f"inception golden {name}: max|Δ| {worst[name][0]:.3e}, "
+                                 f"{ratio:.3f} of the bar")
+    log_card(f"inception golden (card f32, 2 images 75^2 resized to 299^2, the JAX package's "
+        f"tests/golden/inception_golden.npz): pool max|Δ| {worst['pool'][0]:.3e} "
+        f"({worst['pool'][1]:.3f} of atol {GOLDEN_POOL[0]:g} + rtol {GOLDEN_POOL[1]:g}), "
+        f"logits max|Δ| {worst['logits'][0]:.3e} ({worst['logits'][1]:.3f} of atol "
+        f"{GOLDEN_LOGITS[0]:g} + rtol {GOLDEN_LOGITS[1]:g})")
+
+    gen = torch.Generator().manual_seed(62)
+    imgs = torch.tanh(torch.randn((INCEPTION_PARITY_IMAGES, 3, INCEPTION_PARITY_RES,
+                                   INCEPTION_PARITY_RES), generator=gen))
+    random_sd = InceptionV3(device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    parity = {}
+    for label, weights in (("synthetic", sd), ("random", random_sd)):
+        outs = {}
+        for name, dtype, dev in (("cpu", torch.float32, "cpu"), ("f32", torch.float32, device),
+                                 ("bf16", torch.bfloat16, device)):
+            m = InceptionV3(dtype=dtype, device=dev)
+            m.load_state_dict(weights)
+            with torch.inference_mode():
+                outs[name] = m(imgs.to(dev))[0].cpu()
+        ref = outs["cpu"]
+        f32_rel = ((outs["f32"] - ref).abs().max() / ref.abs().max()).item()
+        scale = outs["f32"].abs().mean().item()
+        d16 = (outs["bf16"] - outs["f32"]).abs()
+        parity[label] = dict(f32_rel=f32_rel, bf16_max=d16.max().item() / scale,
+                             bf16_mean=d16.mean().item() / scale)
+        log_card(f"inception card against CPU ({label} weights, {INCEPTION_PARITY_IMAGES} images "
+            f"{INCEPTION_PARITY_RES}^2 resized to 299^2): f32 pool max|Δ| {f32_rel:.3e} of its "
+            f"largest entry (bar {INCEPTION_F32_REL:g}); bf16 mode against the card's f32: max "
+            f"{parity[label]['bf16_max']:.4f}, mean {parity[label]['bf16_mean']:.5f} of the mean "
+            f"|pool| {scale:.4e} (bars {INCEPTION_BF16_MAX}, {INCEPTION_BF16_MEAN})")
+        if not (f32_rel <= INCEPTION_F32_REL and parity[label]["bf16_max"] <= INCEPTION_BF16_MAX
+                and parity[label]["bf16_mean"] <= INCEPTION_BF16_MEAN):
+            raise AssertionError(f"inception card against CPU, {label} weights: {parity[label]}")
+
+    x = torch.tanh(torch.randn((SAMPLER_BATCH, 3, 299, 299), generator=gen)).to(device)
+    layouts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        m = InceptionV3(dtype=dtype, device=device).eval()
+        for layout in ("NCHW", "channels_last"):
+            if layout == "channels_last":
+                m = m.to(memory_format=torch.channels_last)
+                xin = x.contiguous(memory_format=torch.channels_last)
+            else:
+                xin = x
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: m(xin), reps=5, warmup=2)
+            layouts[f"{str(dtype).removeprefix('torch.')} {layout}"] = ms
+        del m
+    log_card(f"inception alone, batch {SAMPLER_BATCH} at 299^2 (ms, CUDA events, median of 5): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in layouts.items()))
+    return dict(golden=worst, parity=parity, layouts_ms=layouts)
+
+
+def _tail_against_f64(device) -> dict:
+    """``fid_is_device`` on the card against float64 moments on the host:
+    scipy's ``sqrtm`` at full rank (Newton-Schulz on the card), the exact
+    eigenvalue trace when rank-deficient (the card's eigenvalue path)."""
+    from scipy import linalg as sla
+
+    ref_mu, ref_sigma = reference_moments(2048, 63)
+    out = {}
+    for n in EVAL_TAIL_POOLS:
+        gen = torch.Generator(device=device).manual_seed(64 + n)
+        scale = torch.rand((2048,), generator=gen, device=device) * 1.5 + 0.5
+        pools = torch.relu(torch.randn((n, 2048), generator=gen, device=device)) * scale
+        logits = torch.randn((n, 1000), generator=gen, device=device) * 3
+        fid_is_device(pools, logits, ref_mu, ref_sigma)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        fid, is_mean, is_std = fid_is_device(pools, logits, ref_mu, ref_sigma)
+        fid, is_mean, is_std = float(fid), float(is_mean), float(is_std)
+        tail_ms = 1e3 * (time.perf_counter() - t0)
+        with full_f32_matmul():
+            d0 = pools - pools.mean(0)
+            sigma = d0.mT @ d0 / (n - 1)
+        _, used_eigh = trace_sqrtm_product(sigma, torch.as_tensor(
+            ref_sigma, dtype=torch.float32, device=device))
+        mu, cov = moments_f64(pools.cpu().numpy())
+        if n >= 2048:
+            d = mu - ref_mu
+            tr = np.trace(sla.sqrtm(cov @ ref_sigma)).real
+            ref = float(d @ d + np.trace(cov) + np.trace(ref_sigma) - 2 * tr)
+            how = "scipy.linalg.sqrtm"
+        else:
+            ref, how = fid_f64(mu, cov, ref_mu, ref_sigma), "float64 eigenvalue trace"
+        ref_is = inception_score(logits.cpu().numpy())
+        rel = abs(fid - ref) / abs(ref)
+        rel_is = max(abs(is_mean - ref_is[0]) / ref_is[0], abs(is_std - ref_is[1]) / ref_is[1])
+        out[n] = dict(fid=fid, ref=ref, rel=rel, eigh=used_eigh, tail_ms=tail_ms, is_rel=rel_is)
+        log_card(f"FID tail, {n} pools against synthetic reference moments: card {fid:.6f} "
+            f"({'eigenvalue path' if used_eigh else 'Newton-Schulz'}), host float64 ({how}) "
+            f"{ref:.6f}: relative {rel:.3e}; IS relative {rel_is:.3e} (bar {EVAL_REL:g}); "
+            f"tail {tail_ms:.2f} ms (moments, square root and IS, host clock)")
+        if rel > EVAL_REL or rel_is > EVAL_REL or used_eigh != (n < 2048):
+            raise AssertionError(f"FID tail with {n} pools: {out[n]}")
+    return out
+
+
+def _eval_loop(device, profile: bool) -> dict:
+    """``evaluate_generator`` over ``make_fused_feature_fn`` of phase 5's
+    folded bf16 sampler: 10,000 images at batch 128, Inception in f32 then
+    bf16 on one image stream; img/s, the tail, peak memory, B1's launches, the
+    FID recomputed on the host in float64, and the FID between the modes.
+    ``profile``: device-time breakdowns of one fused batch and of Inception
+    alone in each mode."""
+    g, _ = build_generator(device)
+    sampler = make_sampler(g, batch_size=SAMPLER_BATCH, device=device)
+    cfg = g.cfg
+    ref_mu, ref_sigma = reference_moments(2048, 65)
+    batches = math.ceil(EVAL_IMAGES / SAMPLER_BATCH)
+    runs, pools = {}, {}
+    for mode in ("f32", "bf16"):
+        ev = InceptionEvaluator(deploy_bf16=mode == "bf16", device=device)
+        fused = make_fused_feature_fn(sampler, ev)
+        gen = torch.Generator(device=device).manual_seed(66)
+
+        def feature_fn(b):
+            z = torch.randn((b, cfg.effective_dim_z), generator=gen, device=device)
+            feats = torch.randn((b, cfg.instance_sz), generator=gen, device=device)
+            return (*fused(z, feats=feats), None)
+
+        feature_fn(SAMPLER_BATCH)  # warm-up, off the stream the pass draws
+        gen.manual_seed(66)
+        tail, tail_times = [], []
+        real_tail = eval_pipeline.fid_is_device
+
+        def recorded_tail(pool, logits, *args, **kw):
+            tail.append((pool, logits))
+            return real_tail(pool, logits, *args, **kw)
+
+        eval_pipeline.fid_is_device = timed_calls(recorded_tail, tail_times)
+        try:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = evaluate_generator(None, ev, ref_mu, ref_sigma, num_images=EVAL_IMAGES,
+                                     batch=SAMPLER_BATCH, feature_fn=feature_fn)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = counts()
+        finally:
+            eval_pipeline.fid_is_device = real_tail
+        peak = torch.cuda.max_memory_allocated()
+        pool, logits = (t.cpu().numpy() for t in tail[0])
+        mu, cov = moments_f64(pool)
+        host_fid = fid_f64(mu, cov, ref_mu, ref_sigma)
+        host_is = inception_score(logits)
+        rel = abs(res["FID"] - host_fid) / abs(host_fid)
+        rel_is = abs(res["IS_mean"] - host_is[0]) / host_is[0]
+        tail_s = tail_times[0]["s"]
+        runs[mode] = dict(img_per_s=EVAL_IMAGES / wall, loop_img_per_s=EVAL_IMAGES / (wall - tail_s),
+                          wall_s=wall, tail_ms=1e3 * tail_s, peak_gib=peak / 2 ** 30,
+                          launches=launches, FID=res["FID"], IS=res["IS_mean"], host_FID=host_fid,
+                          fid_rel=rel, is_rel=rel_is)
+        pools[mode] = pool
+        log_card(f"eval loop, Inception {mode}: evaluate_generator over the fused G (folded bf16, "
+            f"{cfg.resolution}^2 ch{cfg.G_ch}) and Inception, {EVAL_IMAGES} images at batch "
+            f"{SAMPLER_BATCH}: {wall:.3f} s, {runs[mode]['img_per_s']:.2f} img/s (host clock, "
+            f"ending in a synchronize; the feature loop alone {runs[mode]['loop_img_per_s']:.2f}); "
+            f"tail {1e3 * tail_s:.2f} ms; peak memory {peak / 2 ** 30:.2f} GiB; launches "
+            f"{launches}; FID {res['FID']:.6f}, IS {res['IS_mean']:.6f} ± {res['IS_std']:.3e}; "
+            f"host float64 FID {host_fid:.6f} (relative {rel:.3e}), IS relative {rel_is:.3e} "
+            f"(bar {EVAL_REL:g})")
+        if launches != dict(B1=batches, B2=0, B3=0, B4=0, B4bwd=0):
+            raise AssertionError(f"eval loop {mode}: launches {launches}, expected B1 {batches}")
+        if rel > EVAL_REL or rel_is > EVAL_REL or pool.shape != (EVAL_IMAGES, 2048) \
+                or not np.isfinite(pool).all():
+            raise AssertionError(f"eval loop {mode}: {runs[mode]}")
+        if profile:
+            z = torch.randn((SAMPLER_BATCH, cfg.effective_dim_z), generator=gen, device=device)
+            feats = torch.randn((SAMPLER_BATCH, cfg.instance_sz), generator=gen, device=device)
+            imgs = sampler(z, feats=feats, device_output=True).permute(0, 3, 1, 2).contiguous()
+            with torch.inference_mode():
+                phase_profile(f"one eval batch of {SAMPLER_BATCH}, G and Inception {mode}",
+                              lambda: fused(z, feats=feats))
+                phase_profile(f"Inception {mode} alone on {SAMPLER_BATCH} images of "
+                              f"{cfg.resolution}^2", lambda: ev.net(imgs))
+        del ev, fused, tail
+        torch.cuda.empty_cache()
+    between = fid_f64(*moments_f64(pools["f32"]), *moments_f64(pools["bf16"]))
+    drift = np.abs(pools["bf16"] - pools["f32"])
+    scale = np.abs(pools["f32"]).mean()
+    log_card(f"eval loop: FID between the f32 and bf16 Inception on the same {EVAL_IMAGES} images "
+        f"(host float64) {between:.6e}; pool drift max {drift.max() / scale:.4f}, mean "
+        f"{drift.mean() / scale:.5f} of the mean |pool|")
+    del g, sampler
+    return dict(runs=runs, fid_between_modes=between)
+
+
+def phase_eval(device, profile: bool = False) -> dict:
+    """Phase 14: Inception against the golden outputs and the CPU, the FID
+    tail against float64, and the 10,000-image eval loop."""
+    out = _golden_and_card_against_cpu(device)
+    torch.cuda.empty_cache()
+    out["tail"] = _tail_against_f64(device)
+    torch.cuda.empty_cache()
+    out.update(_eval_loop(device, profile))
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv) -> int:
-    card = phase_env()
+    global CARD
+    card = CARD = phase_env()
     device = torch.device("cuda", 0)
     phase_build()
     tensor_cores = phase_tensor_cores()
@@ -2053,10 +2466,14 @@ def main(argv) -> int:
     loop = phase_sg2_loop(device)
     torch.cuda.empty_cache()
     bg = phase_biggan_loop(device)
+    torch.cuda.empty_cache()
+    ev = phase_eval(device, "--profile" in argv)
+    shutil.rmtree(EVAL_DATA_DIR, ignore_errors=True)
+    eval_b1 = sum(r["launches"]["B1"] for r in ev["runs"].values())
     b2 = bwd_timings["G"]
-    by_path = lambda sampler, train_, sg2_train, sg2_loop_=0, biggan_loop_=0: dict(  # noqa: E731
+    by_path = lambda sampler, train_, sg2_train, sg2_loop_=0, biggan_loop_=0, eval_=0: dict(  # noqa: E731
         sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_,
-        biggan_loop=biggan_loop_)
+        biggan_loop=biggan_loop_, eval=eval_)
     per_loop_step = lambda k: {v: g[k] for v, (g, _) in loop["by_variant"].items()}  # noqa: E731
     b3, b3a = sg2_timings["B3"], sg2_timings["B3_adjoint"]
     b4, b4b = sg2_timings["B4"], sg2_timings["B4bwd"]
@@ -2065,10 +2482,11 @@ def main(argv) -> int:
         name="sagan_attention_fwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_fwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:56",
-        launches=main_run["launches"] + train["fwd"] + bg["launches"]["B1"],
+        launches=main_run["launches"] + train["fwd"] + bg["launches"]["B1"] + eval_b1,
         launches_by_path=by_path(main_run["launches"], train["fwd"], 0, 0,
-                                 bg["launches"]["B1"]),
+                                 bg["launches"]["B1"], eval_b1),
         launches_per_biggan_loop_step=bg["per_step"]["B1"],
+        launches_per_eval_pass={m: r["launches"]["B1"] for m, r in ev["runs"].items()},
         max_abs_err=max_err["fwd"],
         ms=b1["kernel_ms"], plain_ms=b1["plain_ms"],
         bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],

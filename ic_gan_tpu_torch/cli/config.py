@@ -35,7 +35,7 @@ DATA_KEYS = {
     "kmeans_subsampled", "n_subsampled_data", "feature_augmentation", "k_nn",
     "hflips", "augment", "load_in_mem_feats", "filter_hd",
 }
-# Read by ``main``; the eval keys once FID evaluation is ported (ROADMAP.md A.12).
+# Read by ``main`` and its eval (``make_eval_fn``).
 RUN_KEYS = {
     "json_config", "experiment_name", "seed", "no_tb", "max_steps", "eval_metrics",
     "inception_weights", "num_inception_images", "eval_batch_size", "eval_bf16",
@@ -54,9 +54,10 @@ SUPERSEDED_KEYS = {
 
 # The BigGAN keys that ``cli/train.py`` reads, through ``split_config``
 # (model, train step, trainer, data), ``name_from_config`` (the experiment
-# name's tokens) and ``main`` itself.  The JAX package's registry also holds
-# the keys of apps the port does not have yet (eval and sampling, ROADMAP.md
-# A.12 and A.15); here they warn, as every key this CLI would drop.
+# name's tokens), ``main`` itself and its eval (``eval.pipeline.
+# make_train_eval_fn``).  The JAX package's registry also holds the keys of
+# apps the port does not have yet (the eval and sampling CLIs, ROADMAP.md
+# A.15); here they warn, as every key this CLI would drop.
 BIGGAN_KEYS = {
     # model geometry
     "model", "resolution", "n_classes", "G_ch", "D_ch", "dim_z",
@@ -87,8 +88,9 @@ BIGGAN_KEYS = {
     # name tokens only
     "which_train_fn", "G_depth", "D_depth",
     # main: the config file, a cluster launch (it raises, ROADMAP.md A.9),
-    # eval (it says eval waits for A.12), resume and the epoch length
+    # eval, resume and the epoch length
     "json_config", "jax_distributed", "num_processes", "eval_metrics",
+    "inception_weights", "num_inception_images", "eval_batch_size", "eval_bf16",
     "resume", "load_weights", "steps_per_epoch",
 }
 

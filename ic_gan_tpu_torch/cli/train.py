@@ -9,7 +9,11 @@ Accepts the reference's published BigGAN JSON configs (e.g.
 ``--device`` names another device, on one process: a cluster launch waits
 for data parallelism (ROADMAP.md A.9).  ``steps_per_epoch`` caps each epoch
 (default: the dataset's size over the images of a step); ``resume`` or
-``load_weights`` (a checkpoint suffix) continue from a saved state.
+``load_weights`` (a checkpoint suffix) continue from a saved state.  With
+``eval_metrics`` (the default) the trainer evaluates FID and IS every
+``test_every`` epochs against the reference moments under ``data_root``
+(``eval.pipeline.make_train_eval_fn``); without that file it says so and
+trains without eval.
 """
 
 from __future__ import annotations
@@ -44,10 +48,16 @@ def main(argv=None):
         sampling_weights = make_weights_for_balanced_classes(
             labels, model_cfg.n_classes,
             longtail_temperature=cfg.get("longtail_temperature", 1.0))
+    eval_fn = None
     if cfg.get("eval_metrics", True):
-        print("eval disabled (FID evaluation is not ported yet: ROADMAP.md A.12)")
+        from ic_gan_tpu_torch.eval.pipeline import make_train_eval_fn
 
-    trainer = Trainer(model_cfg, train_cfg, trainer_cfg, dataset, eval_fn=None,
+        try:
+            eval_fn = make_train_eval_fn(cfg, device=device)
+        except FileNotFoundError as e:
+            print(f"eval disabled ({e})")
+
+    trainer = Trainer(model_cfg, train_cfg, trainer_cfg, dataset, eval_fn=eval_fn,
                       sampling_weights=sampling_weights, device=device)
     if cfg.get("resume", False) or cfg.get("load_weights", ""):
         trainer.resume(suffix=cfg.get("load_weights", ""))

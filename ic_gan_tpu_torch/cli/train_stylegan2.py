@@ -8,7 +8,10 @@ run.py`` + ``train.py``).
 Accepts the reference's StyleGAN2 JSON configs (``cfg`` presets,
 ``aug``/``augpipe``, ``gamma``, ``kimg`` …) mapped onto the port's configs,
 the reference's 'auto' heuristics included (``train.py:297-310``).  Runs on
-CUDA unless ``--device`` names another device.
+CUDA unless ``--device`` names another device.  With ``eval_metrics`` (the
+default) every snapshot is evaluated (FID, IS) against the reference
+moments under ``data_root``; without that file the CLI says so and trains
+without eval.
 """
 
 from __future__ import annotations
@@ -114,11 +117,29 @@ def main(argv=None):
     dataset = get_dataset_hdf5(
         label_dim=model.c_dim, label_onehot=model.c_dim > 0, device=device, **data_kwargs
     )
+    eval_fn = None
     if cfg.get("eval_metrics", True):
-        print("eval disabled (FID evaluation is not ported yet: ROADMAP.md A.12)")
+        try:
+            eval_fn = make_eval_fn(cfg, device)
+        except FileNotFoundError as e:
+            print(f"eval disabled ({e})")
 
-    trainer = SG2Trainer(model, train, loop, dataset, eval_fn=None, device=device)
+    trainer = SG2Trainer(model, train, loop, dataset, eval_fn=eval_fn, device=device)
     trainer.run(max_steps=cfg.get("max_steps"))
+    return trainer
+
+
+def make_eval_fn(cfg: dict, device):
+    """The snapshot eval as the JAX CLI builds it: FID and IS of
+    ``num_inception_images`` EMA samples against the reference moments under
+    ``data_root`` (resolution 256 unless the config says), z drawn from
+    generators seeded 123 + the batch's count (``eval.pipeline.
+    make_train_eval_fn``).  ``FileNotFoundError`` when the moments file is
+    missing."""
+    from ic_gan_tpu_torch.eval.pipeline import make_train_eval_fn
+
+    return make_train_eval_fn(dict(cfg, resolution=cfg.get("resolution", 256)), device,
+                              seed=123, draw=lambda tr, b, gen: (tr.sample_fn(b, gen)[0], None))
 
 
 if __name__ == "__main__":

@@ -371,6 +371,16 @@ class HDF5Dataset:
 
     # -- helpers -------------------------------------------------------------
 
+    def _norm(self, imgs_u8: np.ndarray) -> np.ndarray:
+        """uint8 → float32 in [-1, 1] by the JAX package's formula,
+        (x/255 − 0.5)·2; the eval reads real images through it
+        (``_prepare_images`` rounds as the native loader does, which can
+        differ from this in the last bit)."""
+        imgs = imgs_u8.astype(np.float32)
+        if self.apply_norm:
+            imgs = (imgs / 255.0 - 0.5) * 2.0
+        return imgs
+
     def _prepare_images(self, idxs: np.ndarray, hflip_mask=None) -> np.ndarray:
         """uint8 (B, C, H, W) → float32 (B, C, H, W), flipped along W where
         ``hflip_mask`` is set, mapped to [-1, 1] by x·(2/255) − 1 (the JAX

@@ -235,3 +235,33 @@ def stylegan2_variables_from_state_dict(state_dict: Mapping[str, torch.Tensor]) 
             node = node.setdefault(p, {})
         node[parts[-1]] = _sg2_to_jax(key, t.detach().cpu().numpy())
     return tree
+
+
+# --- InceptionV3 ------------------------------------------------------------------
+#
+# The inverse of ``ic_gan_tpu/models/inception.py:load_torch_inception``:
+# ``<m>/conv/kernel`` HWIO → ``<m>.conv.weight`` OIHW, ``<m>/bn_{weight,bias,
+# mean,var}`` → ``<m>.bn.{weight,bias,running_mean,running_var}``, the ``fc``
+# kernel (in, out) → ``fc.weight`` (out, in).
+
+_INCEPTION_BN = {"bn_weight": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+                 "bn_var": "running_var"}
+
+
+def inception_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``InceptionV3`` state dict (CPU tensors) from the JAX
+    InceptionV3 variables (``{"params": ...}``, numpy or JAX leaves)."""
+    out = {}
+    for path, value in _flatten(variables["params"]).items():
+        if path[-2:] == ("conv", "kernel"):
+            key, value = ".".join(path[:-2]) + ".conv.weight", _t_conv(value)
+        elif path[-1] in _INCEPTION_BN:
+            key, value = ".".join(path[:-1]) + ".bn." + _INCEPTION_BN[path[-1]], _ident(value)
+        elif path == ("fc", "kernel"):
+            key, value = "fc.weight", _t_linear(value)
+        elif path == ("fc", "bias"):
+            key, value = "fc.bias", _ident(value)
+        else:
+            raise KeyError(f"unknown InceptionV3 variable {'/'.join(path)}")
+        out[key] = torch.from_numpy(value)
+    return out

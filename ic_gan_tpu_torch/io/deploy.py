@@ -100,12 +100,6 @@ def make_sampler(g: nn.Module, *, batch_size: Optional[int] = None, device=None,
     device = resolve_device(device)
     fold_spectral_norm(g.to(device).eval())
 
-    def put(a, lo, hi, pad):
-        if a is None:
-            return None
-        a = torch.as_tensor(a[lo:hi], device=device)
-        return torch.cat([a, a[:1].expand(pad, *a.shape[1:])]) if pad else a
-
     def sampler(z, label=None, feats=None, device_output: bool = False):
         n = z.shape[0]
         bs = batch_size or n
@@ -114,10 +108,22 @@ def make_sampler(g: nn.Module, *, batch_size: Optional[int] = None, device=None,
             for lo in range(0, n, bs):
                 hi = min(lo + bs, n)
                 pad = bs - (hi - lo)
-                img = g(put(z, lo, hi, pad), put(label, lo, hi, pad),
-                        put(feats, lo, hi, pad), **apply_kwargs)
+                img = g(*(padded_rows(a, lo, hi, pad, device) for a in (z, label, feats)),
+                        **apply_kwargs)
                 outs.append(img[: hi - lo].permute(0, 2, 3, 1))
             out = torch.cat(outs) if len(outs) > 1 else outs[0].contiguous()
         return out if device_output else np.ascontiguousarray(out.cpu().numpy())
 
+    # What ``eval.pipeline.make_fused_feature_fn`` runs G with.
+    sampler.module, sampler.batch_size, sampler.apply_kwargs = g, batch_size, apply_kwargs
     return sampler
+
+
+def padded_rows(a, lo: int, hi: int, pad: int, device):
+    """Rows ``lo:hi`` of ``a`` (a tensor, an array or None) on ``device``,
+    followed by ``pad`` copies of the first, so that a tail batch has the
+    full batch's shape."""
+    if a is None:
+        return None
+    a = torch.as_tensor(a[lo:hi], device=device)
+    return torch.cat([a, a[:1].expand(pad, *a.shape[1:])]) if pad else a

@@ -8,6 +8,8 @@ installed:
     python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda -q
 """
 
+import copy
+
 import pytest
 import torch
 
@@ -744,3 +746,119 @@ def test_toy_biggan_loop_saves_and_resumes_on_the_card(tmp_path):
         a, b = getattr(tr.state, key).state_dict(), getattr(fresh.state, key).state_dict()
         assert all(b[k].is_cuda and torch.equal(v, b[k]) for k, v in a.items()), key
     assert fresh.state.step == 4
+
+
+# --- the eval stack ------------------------------------------------------------------
+
+def _inception(dtype, device, seed=0):
+    from ic_gan_tpu_torch.models.inception import InceptionV3
+
+    net = InceptionV3(dtype=dtype, device="cpu", generator=torch.Generator().manual_seed(seed))
+    return net.to(device).eval()
+
+
+def test_inception_card_matches_cpu():
+    """Random weights from a seed, 4 images at 64² resized to 299²: the card
+    in f32 within 1e-3 of the largest pool entry of the CPU's; the bf16 mode
+    on the card within JAX's drift bars (max 0.15, mean 0.02 of the mean
+    |pool|) of the CPU's f32 and of the CPU's bf16."""
+    x = torch.tanh(torch.randn((4, 3, 64, 64), generator=torch.Generator().manual_seed(1)))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for device in ("cpu", "cuda"):
+            with torch.inference_mode():
+                pool, logits = _inception(dtype, device)(x.to(device))
+            assert pool.dtype == logits.dtype == torch.float32
+            out[dtype, device] = pool.cpu()
+    ref = out[torch.float32, "cpu"]
+    assert (out[torch.float32, "cuda"] - ref).abs().max() <= 1e-3 * ref.abs().max()
+    scale = ref.abs().mean()
+    for other in (ref, out[torch.bfloat16, "cpu"]):
+        d = (out[torch.bfloat16, "cuda"] - other).abs()
+        assert d.max() <= 0.15 * scale and d.mean() <= 0.02 * scale
+
+
+def _pools(n, dim, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.relu(torch.randn((n, dim), generator=gen)) * (torch.rand(dim, generator=gen) + 0.5)
+
+
+def _reference(dim, seed):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn((dim, dim // 4), generator=gen, dtype=torch.float64)
+    return (torch.randn(dim, generator=gen, dtype=torch.float64) * 0.1,
+            a @ a.T / dim + 0.1 * torch.eye(dim, dtype=torch.float64))
+
+
+def test_fid_tail_with_tf32_on_matches_cpu_and_restores_the_setting():
+    """``fid_is_device`` with the caller's TF32 on: the card within 1e-4 of
+    the CPU (the tail runs in full f32 whatever the caller set), Newton-
+    Schulz on both (full rank), and TF32 still on afterwards."""
+    from ic_gan_tpu_torch.eval.fid import fid_is_device, trace_sqrtm_product
+
+    pools, logits = _pools(3000, 512, 2), torch.randn((3000, 100), generator=torch.Generator().manual_seed(3))
+    mu, sigma = _reference(512, 4)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    got = [float(v) for v in fid_is_device(pools.cuda(), logits.cuda(), mu, sigma)]
+    assert torch.backends.cuda.matmul.allow_tf32
+    want = [float(v) for v in fid_is_device(pools, logits, mu, sigma)]
+    assert all(abs(g - w) <= 1e-4 * abs(w) for g, w in zip(got, want)), (got, want)
+    d0 = pools - pools.mean(0)
+    s1 = d0.T @ d0 / (len(pools) - 1)
+    assert not trace_sqrtm_product(s1.cuda(), sigma.float().cuda())[1]
+    assert not trace_sqrtm_product(s1, sigma.float())[1]
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
+def test_fid_eigenvalue_path_on_the_card():
+    """Rank-deficient covariances (64 samples in 512 dimensions): Newton-
+    Schulz goes non-finite on the card as on the CPU, and the eigenvalue
+    path's FID agrees within 1e-4."""
+    from ic_gan_tpu_torch.eval.fid import frechet_distance, trace_sqrtm_product
+
+    p = _pools(64, 512, 5).double()
+    mu1, s1 = p.mean(0), torch.cov(p.T)
+    mu2, s2 = _reference(512, 6)
+    assert trace_sqrtm_product(s1.float().cuda(), s2.float().cuda())[1]
+    assert trace_sqrtm_product(s1.float(), s2.float())[1]
+    got = frechet_distance(mu1, s1, mu2, s2, device="cuda")
+    want = frechet_distance(mu1, s1, mu2, s2, device="cpu")
+    assert abs(got - want) <= 1e-4 * abs(want), (got, want)
+
+
+def test_fused_eval_loop_launches_b1_a_batch_and_matches_cpu():
+    """``evaluate_generator`` over ``make_fused_feature_fn`` of a toy f32 G
+    with attention: one B1 launch a batch of 8 (the tail batch padded), and
+    FID and IS within 1e-3 of the same loop on the CPU."""
+    from ic_gan_tpu_torch.eval.pipeline import (
+        InceptionEvaluator,
+        evaluate_generator,
+        make_fused_feature_fn,
+    )
+
+    cfg = BigGANConfig(resolution=32, G_ch=8, G_attn="16", dim_z=20, instance_sz=12)
+    g = Generator(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    for m in g.modules():
+        if isinstance(m, SelfAttention):
+            m.gamma.data.fill_(0.5)
+    mu, sigma = _reference(2048, 7)
+    z = torch.randn((20, cfg.effective_dim_z), generator=torch.Generator().manual_seed(8))
+    feats = torch.randn((20, 12), generator=torch.Generator().manual_seed(9))
+    out = {}
+    for device in ("cpu", "cuda"):
+        sampler = make_sampler(copy.deepcopy(g), batch_size=8, device=device)
+        evaluator = InceptionEvaluator(device=device)
+        fused = make_fused_feature_fn(sampler, evaluator)
+        pos = [0]
+
+        def feature_fn(b):
+            lo, pos[0] = pos[0], pos[0] + b
+            return (*fused(z[lo:lo + b].to(device), feats=feats[lo:lo + b].to(device)), None)
+
+        before = sagan_attention_fwd.launches
+        out[device] = evaluate_generator(None, evaluator, mu, sigma, num_images=20, batch=8,
+                                         num_splits=2, feature_fn=feature_fn)
+        launched = sagan_attention_fwd.launches - before
+    assert launched == 3
+    for k in ("FID", "IS_mean"):
+        assert abs(out["cuda"][k] - out["cpu"][k]) <= 1e-3 * abs(out["cpu"][k]), (k, out)

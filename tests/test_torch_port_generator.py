@@ -318,9 +318,9 @@ def test_port_imports_no_jax():
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) >= 20 and os.path.exists(files[0])
     # The walk reaches every slice's modules, the StyleGAN2-ADA ones, the
-    # StyleGAN2 loop's (utils/, cli/, the dataset, checkpoints, the importer)
-    # and the BigGAN loop's (DiffAugment, distributions, the .pth loaders,
-    # the trainer and its CLI) included.
+    # StyleGAN2 loop's (utils/, cli/, the dataset, checkpoints, the importer),
+    # the BigGAN loop's (DiffAugment, distributions, the .pth loaders, the
+    # trainer and its CLI) and the eval stack's (Inception, eval/) included.
     rel = {os.path.relpath(f, os.path.join(ROOT, "ic_gan_tpu_torch")) for f in files}
     assert {"data/ada.py", "data/fast_warp.py", "ops/row_shift.py", "ops/bias_act.py",
             "ops/conv_resample.py", "models/stylegan2.py", "train/stylegan2_step.py",
@@ -329,7 +329,8 @@ def test_port_imports_no_jax():
             "data/feature_bank.py", "io/checkpoint.py", "io/graphdef.py",
             "io/stylegan_import.py", "data/augment.py", "data/distributions.py",
             "io/torch_import.py", "train/trainer.py", "cli/train.py",
-            "cli/inference.py"} <= rel
+            "cli/inference.py", "models/inception.py", "eval/__init__.py", "eval/fid.py",
+            "eval/prdc.py", "eval/pipeline.py", "eval/metrics.py"} <= rel
     bad = {(os.path.relpath(f, ROOT), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad
