@@ -78,9 +78,29 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    B1's launches (one a batch), the FID recomputed in float64 on the host,
    and the FID between the two Inception modes.
 
+15. BigGAN-deep at its published 256² geometry (ch 128, depth 2, 1000
+   classes, attention at 64² in G and D: d 64, dv 256), weights from a seed:
+   B1 and B2 against their plain versions at its three shapes (the sampler
+   at batch 128, the train step's G at 32 and D at 64), bf16 and f32, and
+   timed; the σ-folded bf16 sampler answering requests of 128, 200 and 1
+   (img/s, peak memory, phase 6's parity); the bf16 train step at
+   microbatch 32 (ms/step, img/s, peak memory, B1/B2 launches held to the
+   counts its attention layers give); phase 8's parity on a toy deep model;
+   ``Trainer.run`` for 2 steps with a save and a bit-for-bit reload;
+16. the inference entry points: ``cli/generate_images.py`` from a native
+   checkpoint of phase 5's IC-GAN G (a best copy, as ``Trainer`` names it)
+   and 1,000 stored instances, against ``make_sampler`` on the same draws;
+   an upstream ``.pth`` bundle of phase 15's deep G through
+   ``load_generator`` and ``load_model_inference``, against phase 15's
+   sampler; ``cli/demo.py`` with a ResNet-50 from a seed, its ranking against
+   the cosine similarities the same network gives, and ResNet-50's time at
+   batch 16; ``make_conditioned_sampler`` over an in-memory dataset in both
+   balance modes.  B1 is counted on each path.
+
 ``--profile`` adds device-time breakdowns of one sampler batch, one BigGAN
-train step, one StyleGAN2 main and reg step and one eval batch (G and
-Inception, and Inception alone, in each mode), with the kernels launched
+train step, one StyleGAN2 main and reg step, one eval batch (G and
+Inception, and Inception alone, in each mode), one BigGAN-deep sampler
+batch and one BigGAN-deep train step, with the kernels launched
 inside ``BiasAct.backward`` (its ``bias_act_bwd`` range) summed apart.  The
 last three lines of standard output are the card (name, power limit), one
 JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
@@ -129,6 +149,7 @@ from ic_gan_tpu_torch.io.checkpoint import load_checkpoint
 from ic_gan_tpu_torch.io.deploy import cast_params, fold_spectral_norm, make_sampler
 from ic_gan_tpu_torch.models import stylegan2 as sg2
 from ic_gan_tpu_torch.models.biggan import BigGANConfig, Discriminator, Generator
+from ic_gan_tpu_torch.models.biggan_deep import BigGANDeepConfig, model_classes
 from ic_gan_tpu_torch.models.inception import InceptionV3
 from ic_gan_tpu_torch.models.layers import SelfAttention
 from ic_gan_tpu_torch.ops import _build
@@ -322,6 +343,36 @@ BIGGAN_LOOP_EVAL_IMAGES, SG2_LOOP_EVAL_IMAGES = 1024, 256
 EVAL_HISTORY_KEYS = ("best_IS", "best_FID", "save_best_num", "epochs_no_improvement")
 DEV = "cuda"         # the kernel phases' device (the CPU only to rehearse them)
 
+# --- BigGAN-deep (phase 15) ---------------------------------------------------------
+# BigGAN-deep's published 256² geometry (Brock et al. 2019, arXiv:1809.11096,
+# appendix B; BigGAN-PyTorch scripts/launch_BigGAN_deep.sh): ch 128, depth 2,
+# dim_z 128, shared_dim 128, hier, 1000 classes, attention at 64² in G and D.
+# Weights from a seed.  Its attention layers have 512 channels: d 64, dv 256.
+DEEP_MODEL = dict(resolution=256, G_ch=128, D_ch=128, G_depth=2, D_depth=2, dim_z=128,
+                  shared_dim=128, hier=True, n_classes=1000, G_attn="64", D_attn="64",
+                  class_cond=True, instance_cond=False)
+DEEP_SAMPLER_ATTN = (128, 4096, 1024, 64, 256)   # the sampler at batch 128
+DEEP_G_ATTN = (32, 4096, 1024, 64, 256)          # the train step's G, microbatch 32
+DEEP_D_ATTN = (64, 4096, 1024, 64, 256)          # its D on fake and real together
+DEEP_MB = 32
+DEEP_STEPS = 5
+# Card against CPU, f32: a toy deep model, class-conditional (10 classes).
+DEEP_PARITY_MODEL = dict(resolution=64, G_ch=16, D_ch=16, G_attn="32", D_attn="32",
+                         n_classes=PARITY_CLASSES)
+DEEP_LOOP_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_deep_loop")
+DEEP_LOOP_STEPS = 2
+
+# --- the inference entry points (phase 16) ------------------------------------------
+# Phase 5's IC-GAN G as a flat config a user would pass (split_config's
+# defaults differ from BigGANConfig's: hier, G_shared_feat, the widths).
+INFERENCE_FLAT = dict(resolution=256, G_ch=96, D_ch=96, G_attn="64", D_attn="64", hier=True,
+                      instance_cond=True, G_shared_feat=True, shared_dim=128,
+                      shared_dim_feat=512, dim_z=120)
+INFERENCE_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_inference")
+INFERENCE_BATCH = 32               # load_model_inference's default batch
+STORED_INSTANCES = 1000            # k-means centres of the stored-instances file
+DEMO_SAMPLES = 16
+
 
 def log(msg: str):
     print(msg, flush=True)
@@ -490,16 +541,50 @@ def phase_env() -> str:
     return card
 
 
-def phase_build():
+_ATTN_KERNEL = re.compile(r"(sagan_attention_fwd_(?:mma|kernel)|attn_bwd_(?:q_mma|kv_mma|q_pass|"
+                          r"k_pass))I((?:Li\d+E)+)")
+
+
+def attention_kernel_name(mangled: str) -> str:
+    """``sagan_attention_fwd_mma<256>`` … from a mangled kernel name (the
+    mangled name itself when it is not an attention kernel)."""
+    m = _ATTN_KERNEL.search(mangled)
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>" if m else mangled
+
+
+def ptxas_entries(text: str) -> dict:
+    """{kernel: (registers a thread, spill store bytes)} from ``ptxas -v``."""
+    out = {}
+    for block in re.split(r"Compiling entry function '", text)[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        out[attention_kernel_name(name)] = (int(regs.group(1)) if regs else 0,
+                                            int(spill.group(1)) if spill else 0)
+    return out
+
+
+def phase_build() -> dict:
+    """Builds every source; logs each one's registers and spills, and each
+    dv-256 attention instantiation's (the BigGAN-deep shapes' d 64, dv 256).
+    Returns {kernel: (registers, spill bytes)} of those instantiations ({}
+    when the libraries were built before)."""
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"build: {len(logs)} of {len(_build.sources())} sources compiled in "
         f"{time.perf_counter() - t0:.1f} s")
+    dv256 = {}
     for name, text in logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} registers a "
             f"thread; {sum(1 for b in spills if b)} spill, at most {max(spills, default=0)} bytes")
+        dv256.update({k: v for k, v in ptxas_entries(text).items()
+                      if re.search(r"<(?:\d+,)?256>", k)})
+    if dv256:
+        log("  dv-256 attention instantiations (registers a thread, spill store bytes): "
+            + ", ".join(f"{k} {r}/{b}" for k, (r, b) in sorted(dv256.items())))
+    return dv256
 
 
 def phase_tensor_cores() -> dict:
@@ -519,12 +604,7 @@ def phase_tensor_cores() -> dict:
                 counts[fn] = 0
             elif fn is not None and re.search(r"\bHG?MMA\.", line):
                 counts[fn] += 1
-    named = {}
-    for fn, n in counts.items():
-        m = re.search(r"(sagan_attention_fwd_(?:mma|kernel)|attn_bwd_(?:q_mma|kv_mma|q_pass|k_pass))"
-                      r"I((?:Li\d+E)+)", fn)
-        name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>" if m else fn
-        named[name] = n
+    named = {attention_kernel_name(fn): n for fn, n in counts.items()}
     mma = {k: v for k, v in named.items() if "_mma" in k}
     log("tensor-core instructions (HMMA/HGMMA in SASS) of each bf16 instantiation: "
         + ", ".join(f"{k} {v}" for k, v in sorted(mma.items())))
@@ -535,72 +615,87 @@ def phase_tensor_cores() -> dict:
     return mma
 
 
+def check_fwd(name, shape, dtype, atol) -> float:
+    """The attention forward (and its log-sum-exp) against the plain version
+    on the card; returns max |kernel - plain|."""
+    args = attention_inputs(shape, dtype)
+    got, lse = sagan_attention_fwd(*args, return_lse=True)
+    ref, ref_lse = sagan_attention_ref(*args, return_lse=True)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype or lse.shape != ref_lse.shape:
+        raise AssertionError(f"attention {name}: {got.shape}/{got.dtype} vs "
+                             f"{ref.shape}/{ref.dtype}")
+    err = (got.float() - ref.float()).abs().max().item()
+    d_lse = (lse - ref_lse).abs()
+    if dtype == torch.float32:
+        lse_ok, lse_bar = d_lse.max().item() <= LSE_F32_ATOL, f"atol {LSE_F32_ATOL:g}"
+    else:
+        lse_ok = bool((d_lse <= LSE_BF16_TOL["atol"]
+                       + LSE_BF16_TOL["rtol"] * ref_lse.abs()).all())
+        lse_bar = "atol 1e-5 + rtol 1e-6"
+    log(f"attention {name} {shape}: max|kernel - plain| = {err:.3e} (atol {atol:g}); "
+        f"lse {d_lse.max().item():.3e} ({lse_bar}, max|lse| {ref_lse.abs().max().item():.2f})")
+    if not err <= atol:
+        raise AssertionError(f"attention {name}: max abs err {err} > {atol}")
+    if not lse_ok:
+        raise AssertionError(f"attention {name}: lse off by {d_lse.max().item()}")
+    del got, ref, lse, ref_lse, args
+    torch.cuda.empty_cache()
+    return err
+
+
+def check_bwd(name, shape, dtype, twice: bool = False) -> float:
+    """The attention backward against the plain version on the card, each
+    gradient at BWD_F32_ATOL (f32) or BWD_BF16_TOL (bf16); with ``twice``
+    also run again for the same bits.  Returns the largest max |Δ|."""
+    args = attention_inputs(shape, dtype, with_do=True)
+    _, lse = sagan_attention_ref(*args[:3], return_lse=True)
+    got = sagan_attention_bwd(*args, lse)
+    torch.cuda.synchronize()
+    ref = sagan_attention_bwd_ref(*args)
+    worst = 0.0
+    for gname, t, r, inp in zip(("dtheta", "dphi", "dg"), got, ref, args):
+        if t.shape != inp.shape or t.dtype != inp.dtype or r.dtype != inp.dtype:
+            raise AssertionError(f"attention bwd {name} {gname}: {t.shape}/{t.dtype}")
+        d = (t.float() - r.float()).abs()
+        rmax = r.float().abs().max().item()
+        if dtype == torch.float32:
+            bar = BWD_F32_ATOL * max(1.0, rmax)
+            ratio = d.max().item() / bar
+            how = f"bar {bar:.3e} = 1e-4·max(1, {rmax:.3e})"
+        else:
+            ratio = (d / (BWD_BF16_TOL["atol"]
+                          + BWD_BF16_TOL["rtol"] * r.float().abs())).max().item()
+            how = "atol 5e-2 + rtol 2e-2"
+        log(f"attention bwd {name} {shape} {str(dtype)[6:]} {gname}: max|kernel - plain| "
+            f"= {d.max().item():.3e}, max|plain| {rmax:.3e}, worst |Δ|/bar {ratio:.3f} "
+            f"({how})")
+        if not ratio <= 1.0:
+            raise AssertionError(f"attention bwd {name} {dtype} {gname} out of bar")
+        worst = max(worst, d.max().item())
+    if twice:
+        # No atomics: the same inputs give the same bits.
+        again = sagan_attention_bwd(*args, lse)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"attention bwd {name} {str(dtype)[6:]} run twice: bit-identical {same}")
+        if not same:
+            raise AssertionError("the attention backward is not deterministic")
+        del again
+    del got, ref, args
+    torch.cuda.empty_cache()  # the plain version's (N, Lq, Lk) f32 temps
+    return worst
+
+
 def phase_kernels() -> dict:
     """Each case: max |kernel - plain| on the card.  Returns each kernel's
     error at its path's main bf16 shape."""
-    errs = {}
-    for name, shape, dtype, atol in ATTN_CASES:
-        args = attention_inputs(shape, dtype)
-        got, lse = sagan_attention_fwd(*args, return_lse=True)
-        ref, ref_lse = sagan_attention_ref(*args, return_lse=True)
-        torch.cuda.synchronize()
-        if got.shape != ref.shape or got.dtype != ref.dtype or lse.shape != ref_lse.shape:
-            raise AssertionError(f"attention {name}: {got.shape}/{got.dtype} vs "
-                                 f"{ref.shape}/{ref.dtype}")
-        err = (got.float() - ref.float()).abs().max().item()
-        d_lse = (lse - ref_lse).abs()
-        if dtype == torch.float32:
-            lse_ok, lse_bar = d_lse.max().item() <= LSE_F32_ATOL, f"atol {LSE_F32_ATOL:g}"
-        else:
-            lse_ok = bool((d_lse <= LSE_BF16_TOL["atol"]
-                           + LSE_BF16_TOL["rtol"] * ref_lse.abs()).all())
-            lse_bar = "atol 1e-5 + rtol 1e-6"
-        log(f"attention {name} {shape}: max|kernel - plain| = {err:.3e} (atol {atol:g}); "
-            f"lse {d_lse.max().item():.3e} ({lse_bar}, max|lse| {ref_lse.abs().max().item():.2f})")
-        if not err <= atol:
-            raise AssertionError(f"attention {name}: max abs err {err} > {atol}")
-        if not lse_ok:
-            raise AssertionError(f"attention {name}: lse off by {d_lse.max().item()}")
-        errs[name] = err
+    errs = {name: check_fwd(name, shape, dtype, atol) for name, shape, dtype, atol in ATTN_CASES}
     bwd_err = None
     for name, shape in BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            args = attention_inputs(shape, dtype, with_do=True)
-            _, lse = sagan_attention_ref(*args[:3], return_lse=True)
-            got = sagan_attention_bwd(*args, lse)
-            torch.cuda.synchronize()
-            ref = sagan_attention_bwd_ref(*args)
-            worst = 0.0
-            for gname, t, r, inp in zip(("dtheta", "dphi", "dg"), got, ref, args):
-                if t.shape != inp.shape or t.dtype != inp.dtype or r.dtype != inp.dtype:
-                    raise AssertionError(f"attention bwd {name} {gname}: {t.shape}/{t.dtype}")
-                d = (t.float() - r.float()).abs()
-                rmax = r.float().abs().max().item()
-                if dtype == torch.float32:
-                    bar = BWD_F32_ATOL * max(1.0, rmax)
-                    ratio = d.max().item() / bar
-                    how = f"bar {bar:.3e} = 1e-4·max(1, {rmax:.3e})"
-                else:
-                    ratio = (d / (BWD_BF16_TOL["atol"]
-                                  + BWD_BF16_TOL["rtol"] * r.float().abs())).max().item()
-                    how = "atol 5e-2 + rtol 2e-2"
-                log(f"attention bwd {name} {shape} {str(dtype)[6:]} {gname}: max|kernel - plain| "
-                    f"= {d.max().item():.3e}, max|plain| {rmax:.3e}, worst |Δ|/bar {ratio:.3f} "
-                    f"({how})")
-                if not ratio <= 1.0:
-                    raise AssertionError(f"attention bwd {name} {dtype} {gname} out of bar")
-                worst = max(worst, d.max().item())
+            err = check_bwd(name, shape, dtype, twice=name == "G" and dtype == torch.bfloat16)
             if name == "G" and dtype == torch.bfloat16:
-                bwd_err = worst
-                # No atomics: the same inputs give the same bits.
-                again = sagan_attention_bwd(*args, lse)
-                same = all(torch.equal(a, b) for a, b in zip(got, again))
-                log(f"attention bwd G bf16 run twice: bit-identical {same}")
-                if not same:
-                    raise AssertionError("the attention backward is not deterministic")
-                del again
-            del got, ref, args
-            torch.cuda.empty_cache()  # the plain version's (N, Lq, Lk) f32 temps
+                bwd_err = err
     return dict(fwd=errs["main bf16"], bwd=bwd_err)
 
 
@@ -622,23 +717,53 @@ def sdpa_bwd_ms(args) -> float:
     return cuda_ms(fwd_bwd) - t_fwd
 
 
+def time_fwd(label, shape, with_lse) -> dict:
+    """The forward in bf16 at ``shape`` (with the log-sum-exp as training
+    calls it, or without as a sampler does): kernel, plain version, SDPA
+    (``scale=1.0``) and the bound."""
+    a = attention_inputs(shape, torch.bfloat16)
+    heads = [t.unsqueeze(1) for t in a]  # one head: SDPA's fused backends take 4-D only
+    ts = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*a, return_lse=with_lse)),
+              plain_ms=cuda_ms(lambda: sagan_attention_ref(*a, return_lse=with_lse)),
+              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0)))
+    ts["bound_ms"], ts["bound_by"] = attention_bound_ms(shape, torch.bfloat16)
+    rates(ts, attention_flops(shape))
+    log_card("attention bf16 {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+             "library_ms {library_ms:.4f} (SDPA, 4-D)  bound_ms {bound_ms:.4f} ({bound_by})  "
+             "{tflops:.1f} TFLOP/s, {of_bound:.3f} of bound".format(label, shape, **ts))
+    del a, heads
+    torch.cuda.empty_cache()
+    return ts
+
+
+def time_bwd(label, shape) -> dict:
+    """The backward in bf16 at ``shape``: kernel, plain version of the same
+    contract (with the forward's log-sum-exp), the library's backward and
+    the bound."""
+    args = attention_inputs(shape, torch.bfloat16, with_do=True)
+    _, lse = sagan_attention_fwd(*args[:3], return_lse=True)
+    t = dict(kernel_ms=cuda_ms(lambda: sagan_attention_bwd(*args, lse)),
+             plain_ms=cuda_ms(lambda: sagan_attention_bwd_ref(*args, lse=lse),
+                              reps=3, warmup=1))
+    torch.cuda.empty_cache()
+    t["library_ms"] = sdpa_bwd_ms(args)
+    t["bound_ms"], t["bound_by"] = attention_bwd_bound_ms(shape, torch.bfloat16)
+    rates(t, attention_bwd_flops(shape))
+    log_card("attention bwd bf16 {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+             "library_ms {library_ms:.4f} (SDPA fwd+bwd less fwd)  bound_ms {bound_ms:.4f} "
+             "({bound_by})  {tflops:.1f} TFLOP/s, {of_bound:.3f} of bound".format(
+                 label, shape, **t))
+    del args, lse
+    torch.cuda.empty_cache()
+    return t
+
+
 def phase_timings() -> dict:
     """The forward at the sampler's and the training step's shapes, bf16, as
     each path calls it (the sampler without the log-sum-exp, training with
     it); f32 at the sampler's shape."""
-    t = {}
-    for label, shape, with_lse in (("sampler", MAIN_ATTN, False), ("G", TRAIN_G_ATTN, True),
-                                   ("D", TRAIN_D_ATTN, True)):
-        a = attention_inputs(shape, torch.bfloat16)
-        ts = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*a, return_lse=with_lse)),
-                  plain_ms=cuda_ms(lambda: sagan_attention_ref(*a, return_lse=with_lse)),
-                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*a, scale=1.0)))
-        ts["bound_ms"], ts["bound_by"] = attention_bound_ms(shape, torch.bfloat16)
-        t[label] = rates(ts, attention_flops(shape))
-        log("attention bf16 {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
-            "library_ms {library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by})  "
-            "{tflops:.1f} TFLOP/s, {of_bound:.3f} of bound".format(label, shape, **ts))
-        del a
+    t = {label: time_fwd(label, shape, with_lse) for label, shape, with_lse in (
+        ("sampler", MAIN_ATTN, False), ("G", TRAIN_G_ATTN, True), ("D", TRAIN_D_ATTN, True))}
     args32 = attention_inputs(MAIN_ATTN, torch.float32)
     f32 = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*args32)),
                plain_ms=cuda_ms(lambda: sagan_attention_ref(*args32)))
@@ -649,28 +774,9 @@ def phase_timings() -> dict:
 
 
 def phase_bwd_timings() -> dict:
-    """The backward at the training shapes, bf16: kernel, plain version of
-    the same contract (with the forward's log-sum-exp), the library's
-    backward and the bound."""
-    out = {}
-    for label, shape in (("G", TRAIN_G_ATTN), ("D", TRAIN_D_ATTN)):
-        args = attention_inputs(shape, torch.bfloat16, with_do=True)
-        _, lse = sagan_attention_fwd(*args[:3], return_lse=True)
-        t = dict(kernel_ms=cuda_ms(lambda: sagan_attention_bwd(*args, lse)),
-                 plain_ms=cuda_ms(lambda: sagan_attention_bwd_ref(*args, lse=lse),
-                                  reps=3, warmup=1))
-        torch.cuda.empty_cache()
-        t["library_ms"] = sdpa_bwd_ms(args)
-        t["bound_ms"], t["bound_by"] = attention_bwd_bound_ms(shape, torch.bfloat16)
-        rates(t, attention_bwd_flops(shape))
-        log("attention bwd bf16 {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
-            "library_ms {library_ms:.4f} (SDPA fwd+bwd less fwd)  bound_ms {bound_ms:.4f} "
-            "({bound_by})  {tflops:.1f} TFLOP/s, {of_bound:.3f} of bound".format(
-                label, shape, **t))
-        out[label] = t
-        del args, lse
-        torch.cuda.empty_cache()
-    return out
+    """The backward at the training shapes, bf16."""
+    return {label: time_bwd(label, shape) for label, shape in (("G", TRAIN_G_ATTN),
+                                                                ("D", TRAIN_D_ATTN))}
 
 
 def set_gamma(*nets):
@@ -855,37 +961,52 @@ def phase_parity(main, device) -> None:
     """The folded weights on the card in bf16 and f32 against the CPU in f32;
     also the card in f32 with the weights rounded to bf16, the floor that
     weight rounding alone sets under the bf16 deviation."""
-    cfg16 = main["g"].cfg
+    generator_parity(main["g"], main["weights"], device)
+
+
+def generator_parity(g16, weights, device) -> dict:
+    """Phase 6 for any folded bf16 generator ``g16`` and a copy of its folded
+    f32 ``weights``: z, then features or labels as its config reads them."""
+    cfg16 = g16.cfg
     cfg32 = cfg16.replace(dtype=torch.float32)
+    g_cls = model_classes(cfg32)[0]
     gen = torch.Generator(device=device).manual_seed(2)
     z = torch.randn((PARITY_BATCH, cfg16.effective_dim_z), generator=gen, device=device)
-    feats = torch.randn((PARITY_BATCH, cfg16.instance_sz), generator=gen, device=device)
+    feats = labels = None
+    if cfg16.instance_cond:
+        feats = torch.randn((PARITY_BATCH, cfg16.instance_sz), generator=gen, device=device)
+    if cfg16.class_cond:
+        labels = torch.randint(0, cfg16.n_classes, (PARITY_BATCH,), generator=gen, device=device)
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
 
     def folded_f32(dev, round_to_bf16=False):
-        g = fold_spectral_norm(skip_init(Generator, cfg32, device=dev))
-        g.load_state_dict({k: v.to(dev) for k, v in main["weights"].items()})
+        g = fold_spectral_norm(skip_init(g_cls, cfg32, device=dev))
+        g.load_state_dict({k: v.to(dev) for k, v in weights.items()})
         if round_to_bf16:
             cast_params(cast_params(g, torch.bfloat16), torch.float32)
         return g
 
     with torch.inference_mode():
-        out16 = main["g"](z, None, feats).cpu()
-        out32 = folded_f32(device)(z, None, feats).cpu()
-        out_w = folded_f32(device, round_to_bf16=True)(z, None, feats).cpu()
-        ref = folded_f32("cpu")(z.cpu(), None, feats.cpu())
+        out16 = g16(z, labels, feats).cpu()
+        out32 = folded_f32(device)(z, labels, feats).cpu()
+        out_w = folded_f32(device, round_to_bf16=True)(z, labels, feats).cpu()
+        ref = folded_f32("cpu")(cpu(z), cpu(labels), cpu(feats))
     d16 = (out16 - ref).abs()
     err16, mean16 = d16.max().item(), d16.mean().item()
     err32 = (out32 - ref).abs().max().item()
     err_w = (out_w - ref).abs().max().item()
     met = "2e-4" if err32 <= 2e-4 else f"{F32_BAR:g}"
-    log(f"whole G parity (batch {PARITY_BATCH}, {cfg16.resolution}^2 ch{cfg16.G_ch}, "
-        f"against CPU f32): card bf16 max|d| {err16:.4e} mean|d| {mean16:.4e} "
-        f"(bars {BF16_MAX_BAR}, {BF16_MEAN_BAR}); card f32 with bf16-rounded weights "
-        f"max|d| {err_w:.4e}; card f32 max|d| {err32:.4e} (bar met: {met})")
+    name = f"{type(g16).__module__.rsplit('.', 1)[-1]} " \
+        f"{cfg16.resolution}^2 ch{cfg16.G_ch}"
+    log(f"whole G parity (batch {PARITY_BATCH}, {name}, against CPU f32): card bf16 max|d| "
+        f"{err16:.4e} mean|d| {mean16:.4e} (bars {BF16_MAX_BAR}, {BF16_MEAN_BAR}); card f32 "
+        f"with bf16-rounded weights max|d| {err_w:.4e}; card f32 max|d| {err32:.4e} "
+        f"(bar met: {met})")
     if not (torch.isfinite(ref).all() and err16 <= BF16_MAX_BAR
             and mean16 <= BF16_MEAN_BAR and err32 <= F32_BAR):
         raise AssertionError(f"whole-G parity failed: bf16 max {err16} mean {mean16}, "
                              f"f32 {err32}")
+    return dict(bf16_max=err16, bf16_mean=mean16, f32_max=err32, rounded_weights_max=err_w)
 
 
 def train_flops_per_step(cfg, mb) -> float:
@@ -914,12 +1035,14 @@ def train_flops_per_step(cfg, mb) -> float:
     return mb * ((g_img + 2 * 3 * d_img) + (3 * g_img + 2 * d_img))
 
 
-def build_gan(model, dtype, device, seed):
-    """G and D with the port's init from a seed, gamma 0.5."""
-    cfg = BigGANConfig(**model, dtype=dtype)
+def build_gan(model, dtype, device, seed, deep: bool = False):
+    """G and D (BigGAN's, or with ``deep`` BigGAN-deep's) with the port's
+    init from a seed, gamma 0.5."""
+    cfg = (BigGANDeepConfig if deep else BigGANConfig)(**model, dtype=dtype)
+    g_cls, d_cls = model_classes(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    g = Generator(cfg, device=device, generator=gen)
-    d = Discriminator(cfg, device=device, generator=gen)
+    g = g_cls(cfg, device=device, generator=gen)
+    d = d_cls(cfg, device=device, generator=gen)
     set_gamma(g, d)
     return cfg, g, d
 
@@ -1024,35 +1147,43 @@ def _worst_grad(m_test, m_ref, which):
     return worst
 
 
-def phase_train_parity(device, cc: bool = False) -> None:
+def phase_train_parity(device, cc: bool = False, deep: bool = False) -> None:
     """One train step from the same weights, batch and z on the card and on
     the CPU, f32 (TF32 off since phase 1): losses, raw gradients, SN and BN
     state.  With ``cc``, the class-and-instance-conditioned model and
-    DiffAugment, its draws made once on the CPU and given to both sides.
-    Each ReLU input is recorded on both sides; the entries whose sign
-    differs are counted, and the card's step runs once more with the CPU's
-    ReLU signs in place of its own, to show what of the gradients' gap they
-    make (logged, not gated)."""
-    tcfg = TrainConfig(ema_start=0, adam_eps=1e-3, class_cond=cc,
-                       DiffAugment=DIFF_AUGMENT if cc else "")
-    model = dict(PARITY_MODEL, class_cond=True, n_classes=PARITY_CLASSES) if cc else PARITY_MODEL
-    cfg, g_cpu, d_cpu = build_gan(model, torch.float32, "cpu", seed=5)
+    DiffAugment, its draws made once on the CPU and given to both sides;
+    with ``deep``, a class-conditional BigGAN-deep.  Each ReLU input is
+    recorded on both sides; the entries whose sign differs are counted, and
+    the card's step runs once more with the CPU's ReLU signs in place of its
+    own, to show what of the gradients' gap they make (logged, not gated)."""
+    if deep:
+        tcfg = TrainConfig(ema_start=0, adam_eps=1e-3, class_cond=True, instance_cond=False)
+        model = DEEP_PARITY_MODEL
+    else:
+        tcfg = TrainConfig(ema_start=0, adam_eps=1e-3, class_cond=cc,
+                           DiffAugment=DIFF_AUGMENT if cc else "")
+        model = dict(PARITY_MODEL, class_cond=True, n_classes=PARITY_CLASSES) if cc \
+            else PARITY_MODEL
+    cfg, g_cpu, d_cpu = build_gan(model, torch.float32, "cpu", seed=5, deep=deep)
     gen = torch.Generator().manual_seed(6)
     res, mb = cfg.resolution, PARITY_MB
-    batch = dict(x=torch.rand((1, mb, 3, res, res), generator=gen) * 2 - 1,
-                 feats=torch.randn((1, mb, cfg.instance_sz), generator=gen),
-                 gen_feats=torch.randn((2, mb, cfg.instance_sz), generator=gen))
+    batch = dict(x=torch.rand((1, mb, 3, res, res), generator=gen) * 2 - 1)
+    if cfg.instance_cond:
+        batch.update(feats=torch.randn((1, mb, cfg.instance_sz), generator=gen),
+                     gen_feats=torch.randn((2, mb, cfg.instance_sz), generator=gen))
     zs = [torch.randn((mb, cfg.effective_dim_z), generator=gen) for _ in range(2)]
     aug = None
-    if cc:
+    if cfg.class_cond:
         batch["label"] = torch.randint(0, cfg.n_classes, (1, mb), generator=gen)
         batch["gen_label"] = torch.randint(0, cfg.n_classes, (2, mb), generator=gen)
+    if cc:
         aug = [augment_draws(DIFF_AUGMENT, torch.empty((n, 3, res, res)), gen)
                for n in (2 * mb, mb)]
+    g_cls, d_cls = model_classes(cfg)
 
     def run(dev, masks=None):
-        g = skip_init(Generator, cfg, device=dev)
-        d = skip_init(Discriminator, cfg, device=dev)
+        g = skip_init(g_cls, cfg, device=dev)
+        d = skip_init(d_cls, cfg, device=dev)
         g.load_state_dict(g_cpu.state_dict())
         d.load_state_dict(d_cpu.state_dict())
         state = GANTrainState.create(g, d, tcfg.g_optimizer(), tcfg.d_optimizer())
@@ -1095,6 +1226,8 @@ def phase_train_parity(device, cc: bool = False) -> None:
                 n_state += 1
     worst["state"] = rel
     what = f"cc_icgan ({cfg.n_classes} classes) + DiffAugment '{DIFF_AUGMENT}', " if cc else ""
+    if deep:
+        what = f"BigGAN-deep (depth {cfg.G_depth}, {cfg.n_classes} classes), "
     log(f"train-step parity ({what}{res}^2 ch{cfg.G_ch} attention at 32, mb {mb}, f32, card "
         f"against CPU): worst relative |Δ|: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + f" ({n_state} SN/BN buffers; bars: losses 1e-4, grads {PARITY_GRAD_REL:g} of the "
@@ -1651,6 +1784,14 @@ class CardDataset:
 
     def sample_conditioning_instance_balance(self, n):
         return None, self.feats[self._draw(n)]
+
+    # The conditioned sampler's surface (phase 16): its balance mode, and the
+    # class-balanced draw, a class from ``rng`` with the features of one of
+    # the images (which carry no labels).
+    which_nn_balance = "instance_balance"
+
+    def sample_conditioning_nnclass_balance(self, n, num_classes=1000):
+        return self.rng.integers(0, num_classes, n), self.feats[self._draw(n)]
 
 
 def _state_tensors(state) -> dict:
@@ -2436,11 +2577,438 @@ def phase_eval(device, profile: bool = False) -> dict:
     return out
 
 
+# --- BigGAN-deep (phase 15) ------------------------------------------------------------
+
+DEEP_SHAPES = (("deep sampler", DEEP_SAMPLER_ATTN, False), ("deep G", DEEP_G_ATTN, True),
+               ("deep D", DEEP_D_ATTN, True))
+
+
+def phase_deep_kernels() -> dict:
+    """B1 and B2 at BigGAN-deep's shapes (d 64, dv 256, full length) against
+    their plain versions in bf16 and f32, at phase 3's bars; then timed as
+    phase 4 times them.  Returns the errors and the timings by shape."""
+    fwd_err = bwd_err = 0.0
+    for name, shape, _ in DEEP_SHAPES:
+        for dtype, atol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
+            err = check_fwd(f"{name} {str(dtype)[6:]}", shape, dtype, atol)
+            if dtype == torch.bfloat16:
+                fwd_err = max(fwd_err, err)
+    for name, shape, _ in DEEP_SHAPES[1:]:
+        for dtype in (torch.float32, torch.bfloat16):
+            err = check_bwd(name, shape, dtype)
+            if dtype == torch.bfloat16:
+                bwd_err = max(bwd_err, err)
+    fwd = {name.split()[1]: time_fwd(name, shape, lse) for name, shape, lse in DEEP_SHAPES}
+    bwd = {name.split()[1]: time_bwd(name, shape) for name, shape, _ in DEEP_SHAPES[1:]}
+    return dict(fwd_err=fwd_err, bwd_err=bwd_err, fwd=fwd, bwd=bwd)
+
+
+def attention_layers(net) -> int:
+    return sum(isinstance(m, SelfAttention) for m in net.modules())
+
+
+def expected_step_launches(g, d) -> dict:
+    """B1 and B2 launches of one train step (one D step, no accumulation),
+    from the attention layers of G (a_g) and D (a_d): the D phase runs G and
+    D forward and D backward, the G phase G and D forward and both backward:
+    B1 2·(a_g + a_d), B2 2·a_d + a_g (phase 7's 4 and 3 for one each)."""
+    a_g, a_d = attention_layers(g), attention_layers(d)
+    return dict(B1=2 * (a_g + a_d), B2=2 * a_d + a_g, B3=0, B4=0, B4bwd=0)
+
+
+def phase_deep_sampler(device, profile: bool = False) -> dict:
+    """BigGAN-deep's 256² G from a seed, σ folded, bf16, behind
+    ``make_sampler(batch_size=128)``: requests of 128, 200 and 1 with
+    labels, B1 launched once a batch and nothing else; img/s at batch 128 and
+    peak memory; then phase 6's parity against the CPU in f32."""
+    t0 = time.perf_counter()
+    cfg = BigGANDeepConfig(**DEEP_MODEL, dtype=torch.bfloat16)
+    g = model_classes(cfg)[0](cfg, device=device,
+                              generator=torch.Generator(device=device).manual_seed(70))
+    set_gamma(g)
+    unfolded = {k: v.detach().clone() for k, v in g.state_dict().items()}
+    fold_spectral_norm(g)
+    weights = {k: v.detach().clone() for k, v in g.state_dict().items()}
+    cast_params(g, torch.bfloat16)
+    sampler = make_sampler(g, batch_size=SAMPLER_BATCH, device=device)
+    sync()
+    n_params = sum(p.numel() for p in g.parameters())
+    log(f"deep sampler: BigGAN-deep {cfg.resolution}^2 ch{cfg.G_ch} depth {cfg.G_depth}, "
+        f"{cfg.n_classes} classes, G {n_params / 1e6:.2f} M parameters, built, folded and cast "
+        f"in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=device).manual_seed(71)
+    requests = [(torch.randn((n, cfg.effective_dim_z), generator=gen, device=device),
+                 torch.randint(0, cfg.n_classes, (n,), generator=gen, device=device))
+                for n in REQUESTS]
+    sync()
+    reset_counts()
+    for z, labels in requests:
+        before = counts()
+        imgs = sampler(z, labels, device_output=True)
+        sync()
+        n, batches = z.shape[0], math.ceil(z.shape[0] / SAMPLER_BATCH)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in after}
+        finite = bool(torch.isfinite(imgs).all())
+        log(f"deep request {n}: images {tuple(imgs.shape)} in [{imgs.min().item():.4f}, "
+            f"{imgs.max().item():.4f}], {batches} batches, launches {launched}")
+        if imgs.shape != (n, cfg.resolution, cfg.resolution, 3) or not finite \
+                or imgs.abs().max().item() > 1.0 or imgs.float().std().item() == 0.0:
+            raise AssertionError(f"deep request {n}: bad images")
+        if launched != dict(B1=batches, B2=0, B3=0, B4=0, B4bwd=0):
+            raise AssertionError(f"deep request {n}: launches {launched} for {batches} batches")
+    launches = counts()["B1"]
+    n_batches = sum(math.ceil(z.shape[0] / SAMPLER_BATCH) for z, _ in requests)
+    z, labels = requests[0]
+    sampler(z, labels, device_output=True)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        sampler(z, labels, device_output=True)
+        sync()
+        times.append(time.perf_counter() - t1)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log_card(f"deep sampler batch {SAMPLER_BATCH} bf16: {SAMPLER_BATCH / med:.2f} img/s (median "
+             f"of {len(times)} passes, {1e3 * med:.2f} ms/batch; passes ms "
+             + ", ".join(f"{1e3 * t:.2f}" for t in times) + f"); peak memory {peak:.2f} GiB; "
+             f"B1 launches over the requests {launches} for {n_batches} batches")
+    if profile:
+        phase_profile(f"one deep sampler batch of {SAMPLER_BATCH}",
+                      lambda: sampler(z, labels, device_output=True))
+    parity = generator_parity(g, weights, device)
+    return dict(g=g, sampler=sampler, unfolded=unfolded, launches=launches,
+                launches_per_batch=launches / n_batches, img_per_s=SAMPLER_BATCH / med,
+                peak_gib=peak, parity=parity)
+
+
+def phase_deep_train(device, profile: bool = False) -> dict:
+    """BigGAN-deep's G and D from a seed, bf16 compute, ``make_train_step``
+    at microbatch 32: one warm-up and 5 timed steps,
+    B1 and B2 held to the counts the models give; ms/step, img/s, peak
+    memory."""
+    cfg, g, d = build_gan(DEEP_MODEL, torch.bfloat16, device, seed=72, deep=True)
+    tcfg = TrainConfig(ema_start=0, class_cond=True, instance_cond=False)
+    expect = expected_step_launches(g, d)
+    mb = DEEP_MB
+    state = GANTrainState.create(g, d, tcfg.g_optimizer(), tcfg.d_optimizer())
+    step = make_train_step(tcfg, cfg.effective_dim_z)
+    gen = torch.Generator(device=device).manual_seed(73)
+    res = cfg.resolution
+    batch = dict(x=torch.rand((1, mb, 3, res, res), generator=gen, device=device) * 2 - 1,
+                 label=torch.randint(0, cfg.n_classes, (1, mb), generator=gen, device=device),
+                 gen_label=torch.randint(0, cfg.n_classes, (2, mb), generator=gen, device=device))
+    reset_counts()
+    times, metrics_all = [], []
+    for i in range(1 + DEEP_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        sync()
+        if i > 0:
+            times.append(time.perf_counter() - t1)
+        metrics_all.append({k: v.item() for k, v in metrics.items()})
+    n_steps = 1 + DEEP_STEPS
+    got = counts()
+    want = {k: v * n_steps for k, v in expect.items()}
+    for m in metrics_all:
+        log("deep step: " + "  ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    if not all(math.isfinite(v) for m in metrics_all for v in m.values()):
+        raise AssertionError("a deep step's loss is not finite")
+    if got != want:
+        raise AssertionError(f"deep train launches {got} over {n_steps} steps, expected {want}")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log_card(f"deep train step {cfg.resolution}^2 ch{cfg.G_ch} depth {cfg.G_depth} mb {mb} bf16: "
+             f"{1e3 * med:.2f} ms/step (median of {len(times)}; passes ms "
+             + ", ".join(f"{1e3 * t:.2f}" for t in times) + f"), {mb / med:.2f} img/s "
+             f"(D-real images per step over step time); peak memory {peak:.2f} GiB; launches "
+             f"over {n_steps} steps {got} ({expect['B1']} B1 and {expect['B2']} B2 a step)")
+    if profile:
+        phase_profile(f"one deep train step at microbatch {mb}", lambda: step(state, batch, gen))
+    del state, g, d, batch
+    torch.cuda.empty_cache()
+    return dict(launches=got, per_step=expect, mb=mb, ms_per_step=1e3 * med,
+                img_per_s=mb / med, peak_gib=peak)
+
+
+def phase_deep_loop(device) -> dict:
+    """``Trainer.run`` on BigGAN-deep for one epoch of 2 steps from an
+    in-memory dataset on the card, a save at its end; each step launches
+    what phase 15's train step does; the snapshot reloads bit for bit into
+    a fresh trainer."""
+    shutil.rmtree(DEEP_LOOP_DIR, ignore_errors=True)
+    cfg = BigGANDeepConfig(**DEEP_MODEL, dtype=torch.bfloat16)
+    tcfg = TrainConfig(ema_start=0, class_cond=True, instance_cond=False)
+    lcfg = biggan_loop.TrainerConfig(
+        experiment_name="deep_loop", weights_root=os.path.join(DEEP_LOOP_DIR, "weights"),
+        logs_root=os.path.join(DEEP_LOOP_DIR, "logs"), num_epochs=1, test_every=100,
+        save_every=1, num_save_copies=0, seed=74, batch_size=DEEP_MB, log_every=1,
+        enable_tb=False)
+    dataset = BigGANCardDataset(cfg.resolution, cfg.n_classes, cfg.instance_sz, device, seed=75)
+    tr = biggan_loop.Trainer(cfg, tcfg, lcfg, dataset, device=device)
+    set_gamma(tr.state.g, tr.state.d, tr.state.g_ema)
+    expect = expected_step_launches(tr.state.g, tr.state.d)
+    per_step = []
+    real_step = tr.step_fn
+
+    def step(state, batch, generator):
+        c0 = counts()
+        out = real_step(state, batch, generator)
+        c1 = counts()
+        per_step.append({k: c1[k] - c0[k] for k in c0})
+        return out
+
+    tr.step_fn = step
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.run(steps_per_epoch=DEEP_LOOP_STEPS)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    tr.step_fn = real_step
+    if per_step != [expect] * DEEP_LOOP_STEPS or tr.history["itr"] != DEEP_LOOP_STEPS:
+        raise AssertionError(f"deep loop launches per step {per_step}, expected {expect}")
+    fresh = biggan_loop.Trainer(cfg, tcfg, dataclasses.replace(lcfg, seed=76), BigGANCardDataset(
+        cfg.resolution, cfg.n_classes, cfg.instance_sz, device, seed=75), device=device)
+    t1 = time.perf_counter()
+    fresh.resume()
+    sync()
+    load_s = time.perf_counter() - t1
+    live, back = _state_tensors(tr.state), _state_tensors(fresh.state)
+    diff = [k for k, v in live.items()
+            if not (torch.equal(v, back[k]) if torch.is_tensor(v) else v == back[k])]
+    if set(live) != set(back) or diff or fresh.history != tr.history \
+            or fresh.dataset.rng.bit_generator.state != tr.dataset.rng.bit_generator.state:
+        raise AssertionError(f"deep snapshot reload differs in {diff[:5]} or its history or RNG")
+    wdir = os.path.join(lcfg.weights_root, "deep_loop")
+    size = sum(os.path.getsize(os.path.join(wdir, n)) for n in os.listdir(wdir))
+    epoch = tr.epoch_stats[0]
+    log_card(f"deep loop: Trainer.run, {DEEP_LOOP_STEPS} steps at microbatch {DEEP_MB} in "
+             f"{wall:.2f} s with the save; epoch {epoch['seconds']:.3f} s, "
+             f"{epoch['img_per_s']:.2f} img/s; launches per step {per_step[0]}; snapshot "
+             f"{size / 2 ** 20:.1f} MiB, reloaded bit for bit in {len(live)} tensors and counts "
+             f"({1e3 * load_s:.0f} ms), with the history and the dataset RNG")
+    del tr, fresh, live, back
+    shutil.rmtree(DEEP_LOOP_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, per_step=per_step[0], snapshot_mib=size / 2 ** 20)
+
+
+# --- the inference entry points (phase 16) -----------------------------------------------
+
+def _flat_argv(path, cfg, device) -> list:
+    """A CLI's arguments: the config written to ``path`` and ``--device``."""
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return ["--json_config", path, "--device", str(device)]
+
+
+def _grid(images_u8, rows, cols):
+    n, h, w, c = images_u8.shape
+    r = images_u8.reshape(rows, cols, h, w, c)
+    return np.concatenate([np.concatenate(list(x), axis=1) for x in r], axis=0)
+
+
+def phase_inference(device, deep) -> dict:
+    """The inference entry points on the card: ``cli/generate_images.py``
+    from a native checkpoint of phase 5's IC-GAN G, ``load_generator`` from
+    an upstream ``.pth`` bundle of phase 15's BigGAN-deep G, ``cli/demo.py``
+    with a ResNet-50 from a seed, and ``make_conditioned_sampler`` over an
+    in-memory dataset in both balance modes.  Each is held against direct
+    calls of the same weights, B1 counted in each."""
+    from PIL import Image
+
+    from ic_gan_tpu_torch.cli import demo as demo_cli
+    from ic_gan_tpu_torch.cli import generate_images as generate_cli
+    from ic_gan_tpu_torch.cli import inference as inf
+    from ic_gan_tpu_torch.cli.config import split_config
+    from ic_gan_tpu_torch.io.checkpoint import save_checkpoint
+    from ic_gan_tpu_torch.models.resnet import ResNet50, load_torch_resnet50
+
+    shutil.rmtree(INFERENCE_DIR, ignore_errors=True)
+    os.makedirs(INFERENCE_DIR)
+    out = {}
+    # 1. A native checkpoint of the IC-GAN G and D, named as Trainer names a
+    # best copy, and a stored-instances file.
+    cfg, tcfg = split_config(INFERENCE_FLAT)[:2]
+    gen = torch.Generator(device=device).manual_seed(80)
+    g, d = Generator(cfg, device=device, generator=gen), Discriminator(cfg, device=device,
+                                                                        generator=gen)
+    set_gamma(g, d)
+    state = GANTrainState.create(g, d, tcfg.g_optimizer(), tcfg.d_optimizer())
+    weights_root = os.path.join(INFERENCE_DIR, "weights")
+    sync()
+    t0 = time.perf_counter()
+    save_checkpoint(weights_root, "icgan", state, config={"best_FID": 12.5, "best_IS": 3.0},
+                    suffix="best0")
+    save_s = time.perf_counter() - t0
+    ema = {k: v.detach().clone() for k, v in state.g_ema.state_dict().items()}
+    del state, g, d
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(81)
+    feats = rng.randn(STORED_INSTANCES, cfg.instance_sz).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    labels = rng.randint(0, 1000, STORED_INSTANCES)
+    stored = os.path.join(INFERENCE_DIR, "stored_instances.npy")
+    np.save(stored, dict(instance_features=feats, labels=labels), allow_pickle=True)
+    flat = dict(INFERENCE_FLAT, weights_root=weights_root, experiment_name="icgan",
+                deploy_bf16=True)
+
+    # 2. generate_images: 5 conditionings × 5 images, one padded batch of 32.
+    grid_path = os.path.join(INFERENCE_DIR, "grid.png")
+    argv = _flat_argv(os.path.join(INFERENCE_DIR, "generate.json"),
+                      dict(flat, stored_features=stored, num_conditionings_gen=5, num_imgs_gen=5,
+                           out_path=grid_path), device)
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    generate_cli.main(argv)
+    sync()
+    gen_s = time.perf_counter() - t0
+    gen_launches = counts()
+    grid = np.asarray(Image.open(grid_path).convert("RGB"))
+    g16 = skip_init(Generator, cfg.replace(dtype=torch.bfloat16), device=device)
+    g16.load_state_dict(ema)
+    cast_params(fold_spectral_norm(g16), torch.bfloat16)
+    direct = make_sampler(g16, batch_size=INFERENCE_BATCH, device=device)
+    z, _, f, idxs = inf.get_conditionings(5, 5, feats, labels, cfg.effective_dim_z, seed=0)
+    want = _grid(generate_cli.to_uint8(direct(z, None, f)), 5, 5)
+    delta = np.abs(grid.astype(np.int16) - want.astype(np.int16))
+    # bf16's bars (atol 2e-2 + rtol 2e-2 of images in [-1, 1]) in uint8 levels.
+    if grid.shape != (5 * cfg.resolution, 5 * cfg.resolution, 3) or delta.max() > 6 \
+            or gen_launches != dict(B1=1, B2=0, B3=0, B4=0, B4bwd=0):
+        raise AssertionError(f"generate_images: grid {grid.shape}, max|Δ| {delta.max()} levels "
+                             f"against direct calls, launches {gen_launches}")
+    log_card(f"generate_images (native checkpoint best0 of the {cfg.resolution}^2 ch{cfg.G_ch} "
+             f"IC-GAN G, deploy_bf16, 5 x 5 from {STORED_INSTANCES} stored instances, --device "
+             f"{device}): {gen_s:.2f} s end to end with the load (the checkpoint's save took "
+             f"{save_s:.2f} s); grid {grid.shape}; against make_sampler on the same z and "
+             f"features: {'bit for bit' if delta.max() == 0 else f'max|Δ| {delta.max()} levels'}"
+             f"; launches {gen_launches}")
+    out.update(generate_launches=gen_launches["B1"], generate_s=gen_s)
+    del g16, direct
+    torch.cuda.empty_cache()
+
+    # 3. An upstream .pth bundle of phase 15's BigGAN-deep G (upstream names:
+    # no standing counters), through load_generator and load_model_inference.
+    pth_dir = os.path.join(INFERENCE_DIR, "deep_pth")
+    os.makedirs(pth_dir)
+    torch.save({k: v.cpu() for k, v in deep["unfolded"].items()
+                if not k.endswith("accum_counter")}, os.path.join(pth_dir, "G_ema.pth"))
+    deep_flat = dict(model="BigGANdeep", **DEEP_MODEL)
+    torch.save({"config": deep_flat, "best_FID": 7.0}, os.path.join(pth_dir, "state_dict.pth"))
+    loaded, lcfg = inf.load_generator(dict(deep_flat, pth_dir=pth_dir), device=device)
+    same = all(torch.equal(v, deep["unfolded"][k]) for k, v in loaded.state_dict().items())
+    del loaded
+    sampler, _ = inf.load_model_inference(dict(deep_flat, pth_dir=pth_dir, deploy_bf16=True,
+                                               batch_size=SAMPLER_BATCH), device=device)
+    gen = torch.Generator(device=device).manual_seed(84)
+    z = torch.randn((SAMPLER_BATCH, lcfg.effective_dim_z), generator=gen, device=device)
+    lab = torch.randint(0, lcfg.n_classes, (SAMPLER_BATCH,), generator=gen, device=device)
+    reset_counts()
+    got = sampler(z, lab, device_output=True)
+    pth_launches = counts()
+    ref = deep["sampler"](z, lab, device_output=True)
+    sync()
+    bitwise = torch.equal(got, ref)
+    if not same or not isinstance(lcfg, BigGANDeepConfig) or not bitwise \
+            or pth_launches != dict(B1=1, B2=0, B3=0, B4=0, B4bwd=0):
+        raise AssertionError(f"deep .pth: weights equal {same}, images equal {bitwise}, "
+                             f"launches {pth_launches}")
+    log(f"deep .pth bundle: load_generator gave the bundle's weights exactly; "
+        f"load_model_inference (deploy_bf16, batch {SAMPLER_BATCH}) against phase 15's sampler "
+        f"on the same z and labels: bit for bit; launches {pth_launches}")
+    out["pth_launches"] = pth_launches["B1"]
+    del sampler, got, ref
+    torch.cuda.empty_cache()
+
+    # 4. The demo: a ResNet-50 from a seed saved with torchvision's names,
+    # one cell of the grid as the user's image, 16 samples ranked.
+    net = ResNet50(device=device, generator=torch.Generator(device=device).manual_seed(82))
+    rn50 = os.path.join(INFERENCE_DIR, "rn50.pth")
+    torch.save({k: v.cpu() for k, v in net.state_dict().items()}, rn50)
+    image = os.path.join(INFERENCE_DIR, "input.png")
+    Image.fromarray(grid[:cfg.resolution, :cfg.resolution]).save(image)
+    demo_flat = dict(flat, input_image=image, feature_extractor_weights=rn50,
+                     num_samples=DEMO_SAMPLES, out_path=os.path.join(INFERENCE_DIR, "demo.png"))
+    argv = _flat_argv(os.path.join(INFERENCE_DIR, "demo.json"), demo_flat, device)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, order = demo_cli.main(argv)
+    sync()
+    demo_s = time.perf_counter() - t0
+    demo_launches = counts()
+    loaded = load_torch_resnet50(torch.load(rn50, weights_only=True), device=device)
+    target = demo_cli.extract_features(image, loaded)
+    sampler, mcfg = inf.load_model_inference(demo_flat, device=device)
+    z = torch.randn((DEMO_SAMPLES, mcfg.effective_dim_z),
+                    generator=torch.Generator().manual_seed(0))
+    imgs = sampler(z, None, np.repeat(target[None], DEMO_SAMPLES, axis=0))
+    sims = (demo_cli.features(loaded, (torch.from_numpy(imgs).permute(0, 3, 1, 2) + 1) / 2)
+            @ torch.as_tensor(target, device=device)).cpu().numpy()
+    ranked = sims[order]
+    grid_demo = np.asarray(Image.open(demo_flat["out_path"]))
+    nrow = math.ceil(math.sqrt(DEMO_SAMPLES))
+    if not (np.diff(ranked) <= 1e-5).all() or sorted(order) != list(range(DEMO_SAMPLES)) \
+            or grid_demo.shape != (math.ceil(DEMO_SAMPLES / nrow) * cfg.resolution,
+                                   nrow * cfg.resolution, 3) \
+            or demo_launches["B1"] != 1:
+        raise AssertionError(f"demo: similarities in its order {ranked}, grid {grid_demo.shape}, "
+                             f"launches {demo_launches}")
+    x = torch.rand((DEMO_SAMPLES, 3, 224, 224), generator=torch.Generator(device=device)
+                   .manual_seed(85), device=device)
+    with torch.inference_mode():
+        rn_ms = cuda_ms(lambda: loaded(x))
+    log_card(f"demo (ResNet-50 from a seed as feature_extractor_weights, a {cfg.resolution}^2 "
+             f"cell of the grid as the input, {DEMO_SAMPLES} samples): {demo_s:.2f} s end to end; "
+             f"its order sorts the cosine similarities taken with the loaded network "
+             f"(descending, {ranked[0]:.6f} … {ranked[-1]:.6f}); B1 launches {demo_launches['B1']}"
+             f"; ResNet-50 f32 at batch {DEMO_SAMPLES}, 224^2: {rn_ms:.3f} ms")
+    out.update(demo_launches=demo_launches["B1"], resnet50_ms=rn_ms)
+
+    # 5. make_conditioned_sampler over an in-memory dataset, both balance
+    # modes: 200 images in batches of 128, against the sampler on its draws.
+    cond_flat = dict(flat, batch_size=SAMPLER_BATCH, seed=3)
+    sampler, mcfg = inf.load_model_inference(cond_flat, device=device)
+    cond_launches = 0
+    for balance in ("instance_balance", "nnclass_balance"):
+        runs = []
+        for _ in range(2):
+            ds = CardDataset(cfg.resolution, cfg.instance_sz, device, seed=86)
+            ds.which_nn_balance = balance
+            runs.append(inf.make_conditioned_sampler(cond_flat, sampler, mcfg, ds))
+        reset_counts()
+        imgs, lab = runs[0](200)
+        cond_launches += counts()["B1"]
+        zq, lq, fq, _ = runs[1].draw(200)
+        again = sampler(zq, lq, fq, device_output=True)
+        sync()
+        if imgs.shape != (200, cfg.resolution, cfg.resolution, 3) or lab is not None \
+                or not torch.equal(imgs, again) or not bool(torch.isfinite(imgs).all()):
+            raise AssertionError(f"conditioned sampler ({balance}): {tuple(imgs.shape)}")
+    if cond_launches != 2 * math.ceil(200 / SAMPLER_BATCH):
+        raise AssertionError(f"conditioned sampler: {cond_launches} B1 launches")
+    log(f"make_conditioned_sampler (CardDataset, instance and nnclass balance, 200 images at "
+        f"batch {SAMPLER_BATCH}): images equal the sampler's on the same draws; B1 launches "
+        f"{cond_launches}")
+    out["conditioned_launches"] = cond_launches
+    del sampler
+    shutil.rmtree(INFERENCE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["launches"] = (out["generate_launches"] + out["pth_launches"] + out["demo_launches"]
+                       + cond_launches)
+    return out
+
+
 def main(argv) -> int:
     global CARD
     card = CARD = phase_env()
     device = torch.device("cuda", 0)
-    phase_build()
+    dv256 = phase_build()
     tensor_cores = phase_tensor_cores()
     max_err = phase_kernels()
     sg2_err = phase_b3_b4()
@@ -2470,10 +3038,34 @@ def main(argv) -> int:
     ev = phase_eval(device, "--profile" in argv)
     shutil.rmtree(EVAL_DATA_DIR, ignore_errors=True)
     eval_b1 = sum(r["launches"]["B1"] for r in ev["runs"].values())
+    deep_k = phase_deep_kernels()
+    deep = phase_deep_sampler(device, "--profile" in argv)
+    deep_train = phase_deep_train(device, "--profile" in argv)
+    phase_train_parity(device, deep=True)
+    deep_loop = phase_deep_loop(device)
+    inference = phase_inference(device, deep)
+    deep_launches, deep_per_batch = deep["launches"], deep["launches_per_batch"]
+    del deep
+    torch.cuda.empty_cache()
     b2 = bwd_timings["G"]
-    by_path = lambda sampler, train_, sg2_train, sg2_loop_=0, biggan_loop_=0, eval_=0: dict(  # noqa: E731
-        sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_,
-        biggan_loop=biggan_loop_, eval=eval_)
+    by_path = lambda sampler, train_, sg2_train, sg2_loop_=0, biggan_loop_=0, eval_=0, \
+        deep_sampler=0, deep_train_=0, deep_loop_=0, inference_=0: dict(  # noqa: E731
+            sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_,
+            biggan_loop=biggan_loop_, eval=eval_, deep_sampler=deep_sampler,
+            deep_train=deep_train_, deep_loop=deep_loop_, inference=inference_)
+    deep_b1 = dict(deep_sampler=deep_launches, deep_train_=deep_train["launches"]["B1"],
+                   deep_loop_=deep_loop["launches"]["B1"], inference_=inference["launches"])
+    deep_b2 = dict(deep_train_=deep_train["launches"]["B2"],
+                   deep_loop_=deep_loop["launches"]["B2"])
+    deep_shapes = lambda which: dict(  # noqa: E731
+        shapes={k: list(v) for k, v in (("sampler", DEEP_SAMPLER_ATTN), ("G", DEEP_G_ATTN),
+                                        ("D", DEEP_D_ATTN)) if k in deep_k[which]},
+        timings=deep_k[which], max_abs_err=deep_k[f"{which}_err"],
+        launches_per_train_step=deep_train["per_step"]["B1" if which == "fwd" else "B2"],
+        launches_per_loop_step=deep_loop["per_step"]["B1" if which == "fwd" else "B2"],
+        train_microbatch=deep_train["mb"],
+        registers_and_spill_bytes={k: list(v) for k, v in dv256.items()
+                                   if ("fwd" in k) == (which == "fwd")})
     per_loop_step = lambda k: {v: g[k] for v, (g, _) in loop["by_variant"].items()}  # noqa: E731
     b3, b3a = sg2_timings["B3"], sg2_timings["B3_adjoint"]
     b4, b4b = sg2_timings["B4"], sg2_timings["B4bwd"]
@@ -2482,9 +3074,10 @@ def main(argv) -> int:
         name="sagan_attention_fwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_fwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:56",
-        launches=main_run["launches"] + train["fwd"] + bg["launches"]["B1"] + eval_b1,
+        launches=main_run["launches"] + train["fwd"] + bg["launches"]["B1"] + eval_b1
+        + sum(deep_b1.values()),
         launches_by_path=by_path(main_run["launches"], train["fwd"], 0, 0,
-                                 bg["launches"]["B1"], eval_b1),
+                                 bg["launches"]["B1"], eval_b1, **deep_b1),
         launches_per_biggan_loop_step=bg["per_step"]["B1"],
         launches_per_eval_pass={m: r["launches"]["B1"] for m, r in ev["runs"].items()},
         max_abs_err=max_err["fwd"],
@@ -2493,12 +3086,17 @@ def main(argv) -> int:
         library_ms=b1["library_ms"], tflops=b1["tflops"], of_bound=b1["of_bound"],
         tensor_core_instructions={k: v for k, v in tensor_cores.items() if "fwd" in k},
         train_shapes=dict(G=timings["G"], D=timings["D"]),
+        deep_shapes=dict(deep_shapes("fwd"), launches_per_sampler_batch=deep_per_batch),
+        inference_launches=dict(generate_images=inference["generate_launches"],
+                                pth_sampler=inference["pth_launches"],
+                                demo=inference["demo_launches"],
+                                conditioned_sampler=inference["conditioned_launches"]),
     ), dict(
         name="sagan_attention_bwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_bwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:136",
-        launches=train["bwd"] + bg["launches"]["B2"],
-        launches_by_path=by_path(0, train["bwd"], 0, 0, bg["launches"]["B2"]),
+        launches=train["bwd"] + bg["launches"]["B2"] + sum(deep_b2.values()),
+        launches_by_path=by_path(0, train["bwd"], 0, 0, bg["launches"]["B2"], **deep_b2),
         launches_per_biggan_loop_step=bg["per_step"]["B2"],
         max_abs_err=max_err["bwd"],
         ms=b2["kernel_ms"], plain_ms=b2["plain_ms"],
@@ -2506,6 +3104,7 @@ def main(argv) -> int:
         library_ms=b2["library_ms"], tflops=b2["tflops"], of_bound=b2["of_bound"],
         tensor_core_instructions={k: v for k, v in tensor_cores.items() if "bwd" in k},
         train_shapes=bwd_timings,
+        deep_shapes=deep_shapes("bwd"),
     ), dict(
         name="row_shift", route="cuda", source="ic_gan_tpu_torch/csrc/row_shift.cu",
         replaces="ic_gan_tpu/ops/pallas/row_shift.py:104",

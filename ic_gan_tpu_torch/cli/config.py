@@ -85,13 +85,24 @@ BIGGAN_KEYS = {
     "backbone_feature_extractor", "which_knn_balance", "which_nn_balance",
     "kmeans_subsampled", "n_subsampled_data", "feature_augmentation", "k_nn",
     "hflips", "augment", "load_in_mem_feats", "filter_hd",
-    # name tokens only
+    # BigGAN-deep (G_depth, D_depth) and a name token
     "which_train_fn", "G_depth", "D_depth",
     # main: the config file, a cluster launch (it raises, ROADMAP.md A.9),
     # eval, resume and the epoch length
     "json_config", "jax_distributed", "num_processes", "eval_metrics",
     "inception_weights", "num_inception_images", "eval_batch_size", "eval_bf16",
     "resume", "load_weights", "steps_per_epoch",
+}
+
+# Read by the inference front end (``cli/inference.py``) and its CLIs
+# (``generate_images``, ``sample``, ``demo``).
+INFERENCE_KEYS = {
+    "backbone", "model_backbone", "pth_dir", "network_pkl", "suffix", "which_model",
+    "root_path", "trained_dataset", "deploy_bf16", "truncation_psi", "noise_mode",
+    "standing_batch_size", "quantize_serving", "stored_features", "num_conditionings_gen",
+    "num_imgs_gen", "index", "swap_target", "visualize_instance_images", "dataset_path",
+    "out_path", "out_dir", "num_imgs", "num_samples", "input_image",
+    "feature_extractor_weights",
 }
 
 # Supported only at the reference default; anything else warns.
@@ -109,16 +120,20 @@ DEFAULT_ONLY_KEYS = {
 }
 
 
-def validate_config(cfg: Dict[str, Any], backbone: str = "stylegan2") -> list:
+def validate_config(cfg: Dict[str, Any], backbone: str = "stylegan2",
+                    inference: bool = False) -> list:
     """Warn on every key of ``cfg`` that the ``backbone``'s CLI would drop:
     for ``stylegan2`` the keys ``cli/train_stylegan2.py`` reads; for
-    ``biggan`` the keys ``cli/train.py`` reads, and a default-only key away
-    from its reference value.  Returns the problem strings."""
+    ``biggan`` the keys ``cli/train.py`` reads (with ``inference``, also
+    those of the inference CLIs), and a default-only key away from its
+    reference value.  Returns the problem strings."""
     problems = []
     if backbone == "stylegan2":
         known = SG2_KEYS | DATA_KEYS | RUN_KEYS | SUPERSEDED_KEYS
     else:
         known = BIGGAN_KEYS | SUPERSEDED_KEYS | set(DEFAULT_ONLY_KEYS)
+        if inference:
+            known |= INFERENCE_KEYS
     for key, value in cfg.items():
         if backbone != "stylegan2" and key in DEFAULT_ONLY_KEYS:
             allowed = DEFAULT_ONLY_KEYS[key]
@@ -170,21 +185,22 @@ def _data_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return data_kwargs
 
 
-def split_config(cfg: Dict[str, Any]):
-    """Split a reference-style flat BigGAN config into ``(BigGANConfig,
+def split_config(cfg: Dict[str, Any], inference: bool = False):
+    """Split a reference-style flat BigGAN config into ``(model config,
     TrainConfig, TrainerConfig, data_kwargs)``, as the JAX ``split_config``
-    does, after ``validate_config``.  ``batch_size`` is the reference's
-    per-rank microbatch; the trainer's is that times ``n_nodes ·
-    n_gpus_per_node``, so a step sees the reference run's images.
-    ``bf16`` selects bfloat16 compute.  ``model: BigGANdeep`` raises:
-    that backbone waits for ROADMAP.md A.11."""
+    does, after ``validate_config`` (``inference`` for the inference CLIs'
+    keys).  ``model: BigGANdeep`` gives a
+    ``BigGANDeepConfig`` (dim_z 128, ``G_depth``/``D_depth`` 2 by default,
+    no ``D_wide``; ref ``trainer.py:122``), else a ``BigGANConfig``.
+    ``batch_size`` is the reference's per-rank microbatch; the trainer's is
+    that times ``n_nodes · n_gpus_per_node``, so a step sees the reference
+    run's images.  ``bf16`` selects bfloat16 compute."""
     from ic_gan_tpu_torch.models.biggan import BigGANConfig
+    from ic_gan_tpu_torch.models.biggan_deep import BigGANDeepConfig
 
-    validate_config(cfg, backbone="biggan")
+    validate_config(cfg, backbone="biggan", inference=inference)
     g = cfg.get
-    if g("model", "BigGAN") == "BigGANdeep":
-        raise NotImplementedError("the BigGAN-deep backbone is not ported yet (ROADMAP.md A.11)")
-    model = BigGANConfig(
+    common = dict(
         resolution=g("resolution", 64),
         n_classes=g("n_classes", 1000),
         G_ch=g("G_ch", 64),
@@ -203,12 +219,15 @@ def split_config(cfg: Dict[str, Any]):
         num_SV_itrs=g("num_G_SV_itrs", 1),
         SN_eps=g("SN_eps", 1e-6),
         BN_eps=g("BN_eps", 1e-5),
-        D_wide=g("D_wide", g("D_thin", True)),
         norm_style=g("norm_style", "bn"),
         dtype=torch.bfloat16 if g("bf16", False) else torch.float32,
-        dim_z=g("dim_z", 120),
-        bottom_width=g("bottom_width", 4),
     )
+    if g("model", "BigGAN") == "BigGANdeep":
+        model = BigGANDeepConfig(dim_z=g("dim_z", 128), G_depth=g("G_depth", 2),
+                                 D_depth=g("D_depth", 2), **common)
+    else:
+        model = BigGANConfig(D_wide=g("D_wide", g("D_thin", True)), dim_z=g("dim_z", 120),
+                             bottom_width=g("bottom_width", 4), **common)
     return (model,) + _split_train_and_data(cfg)
 
 

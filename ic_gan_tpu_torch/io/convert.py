@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ic_gan_tpu_torch.models.biggan import BigGANConfig, d_arch, g_arch
+from ic_gan_tpu_torch.models.biggan_deep import BigGANDeepConfig, deep_d_arch
 
 Path = Tuple[str, ...]
 
@@ -83,11 +84,7 @@ def generator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]:
     """JAX variable path → (torch key, transform) for the generator."""
     arch = g_arch(cfg.resolution, cfg.G_ch, cfg.G_attn)
     m: Dict[Path, Tuple[str, Callable]] = {}
-    if cfg.class_cond:
-        m[("params", "shared")] = ("shared.weight", _ident)
-    if cfg.instance_cond and cfg.G_shared_feat:
-        _dense(m, ("shared_feat",), "shared_feat")
-    _dense(m, ("linear",), "linear")
+    _g_input(m, cfg, cfg.G_shared_feat)
     for i in range(len(arch["out_channels"])):
         p = ("block_%d" % i,)
         t = f"blocks.{i}.0"
@@ -99,11 +96,32 @@ def generator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]:
             _conv(m, p + ("conv_sc",), f"{t}.conv_sc")
         if arch["attention"][i]:
             _attention(m, ("attn_%d" % i,), f"blocks.{i}.1")
+    _g_output(m)
+    return m
+
+
+def _g_input(m, cfg, shared_feat):
+    if cfg.class_cond:
+        m[("params", "shared")] = ("shared.weight", _ident)
+    if cfg.instance_cond and shared_feat:
+        _dense(m, ("shared_feat",), "shared_feat")
+    _dense(m, ("linear",), "linear")
+
+
+def _g_output(m):
     m[("params", "output_bn", "gain")] = ("output_layer.0.gain", _ident)
     m[("params", "output_bn", "bias")] = ("output_layer.0.bias", _ident)
     _bn_stats(m, ("output_bn",), "output_layer.0")
     _conv(m, ("output_conv",), "output_layer.2")
-    return m
+
+
+def _d_heads(m, cfg):
+    _dense(m, ("linear",), "linear")
+    if cfg.class_cond:
+        m[("params", "embed", "embedding")] = ("embed.weight", _ident)
+        _sn_entries(m, ("embed",), "embed")
+    if cfg.instance_cond:
+        _dense(m, ("linear_feat",), "linear_feat")
 
 
 def discriminator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]:
@@ -119,12 +137,49 @@ def discriminator_key_map(cfg: BigGANConfig) -> Dict[Path, Tuple[str, Callable]]
             _conv(m, p + ("conv_sc",), f"{t}.conv_sc")
         if arch["attention"][i]:
             _attention(m, ("attn_%d" % i,), f"blocks.{i}.1")
-    _dense(m, ("linear",), "linear")
-    if cfg.class_cond:
-        m[("params", "embed", "embedding")] = ("embed.weight", _ident)
-        _sn_entries(m, ("embed",), "embed")
-    if cfg.instance_cond:
-        _dense(m, ("linear_feat",), "linear_feat")
+    _d_heads(m, cfg)
+    return m
+
+
+def deep_generator_key_map(cfg) -> Dict[Path, Tuple[str, Callable]]:
+    """JAX variable path → (torch key, transform) for the BigGAN-deep
+    generator: stage i's block j is ``blocks.{i·G_depth + j}.0``, the
+    stage's attention ``.1`` of its last block.  The deep G always projects
+    instance features through ``shared_feat``, as the JAX one does."""
+    arch = g_arch(cfg.resolution, cfg.G_ch, cfg.G_attn)
+    m: Dict[Path, Tuple[str, Callable]] = {}
+    _g_input(m, cfg, shared_feat=True)
+    depth = cfg.G_depth
+    for i in range(len(arch["out_channels"])):
+        for j in range(depth):
+            p, t = (f"block_{i}_{j}",), f"blocks.{i * depth + j}.0"
+            for k in range(1, 5):
+                _ccbn(m, p + (f"bn{k}",), f"{t}.bn{k}", cfg.norm_style)
+                _conv(m, p + (f"conv{k}",), f"{t}.conv{k}")
+        if arch["attention"][i]:
+            _attention(m, (f"attn_{i}",), f"blocks.{i * depth + depth - 1}.1")
+    _g_output(m)
+    return m
+
+
+def deep_discriminator_key_map(cfg) -> Dict[Path, Tuple[str, Callable]]:
+    """JAX variable path → (torch key, transform) for the BigGAN-deep
+    discriminator: the stem ``input_conv``, stage i's block j at
+    ``blocks.{i}.{j}``, its attention at ``blocks.{i}.{D_depth}``."""
+
+    arch = deep_d_arch(cfg.resolution, cfg.D_ch, cfg.D_attn)
+    m: Dict[Path, Tuple[str, Callable]] = {}
+    _conv(m, ("input_conv",), "input_conv")
+    for i in range(len(arch["out_channels"])):
+        for j in range(cfg.D_depth):
+            p, t = (f"block_{i}_{j}",), f"blocks.{i}.{j}"
+            for k in range(1, 5):
+                _conv(m, p + (f"conv{k}",), f"{t}.conv{k}")
+            if j == 0 and arch["in_channels"][i] != arch["out_channels"][i]:
+                _conv(m, p + ("conv_sc",), f"{t}.conv_sc")
+        if arch["attention"][i]:
+            _attention(m, (f"attn_{i}",), f"blocks.{i}.{cfg.D_depth}")
+    _d_heads(m, cfg)
     return m
 
 
@@ -151,20 +206,26 @@ def _state_dict_from_jax(variables: Mapping, key_map) -> Dict[str, torch.Tensor]
     return out
 
 
-def generator_state_dict_from_jax(variables: Mapping, cfg: BigGANConfig
-                                  ) -> Dict[str, torch.Tensor]:
+def generator_state_dict_from_jax(variables: Mapping,
+                                  cfg: BigGANConfig) -> Dict[str, torch.Tensor]:
     """The port's generator ``state_dict`` (CPU tensors) from a float32 JAX
-    variable tree with numpy (or JAX) leaves.  A folded tree (no ``sn``
-    collection) gives a folded state dict, without ``u0``/``sv0``: load it
-    into a generator that ``io.deploy.fold_spectral_norm`` has folded."""
-    return _state_dict_from_jax(variables, generator_key_map(cfg))
+    variable tree with numpy (or JAX) leaves, under BigGAN-deep's names when
+    ``cfg`` is a ``BigGANDeepConfig``.  A folded tree (no ``sn`` collection)
+    gives a folded state dict, without ``u0``/``sv0``: load it into a
+    generator that ``io.deploy.fold_spectral_norm`` has folded."""
+    deep = isinstance(cfg, BigGANDeepConfig)
+    key_map = deep_generator_key_map(cfg) if deep else generator_key_map(cfg)
+    return _state_dict_from_jax(variables, key_map)
 
 
-def discriminator_state_dict_from_jax(variables: Mapping, cfg: BigGANConfig
-                                      ) -> Dict[str, torch.Tensor]:
+def discriminator_state_dict_from_jax(variables: Mapping,
+                                      cfg: BigGANConfig) -> Dict[str, torch.Tensor]:
     """The port's discriminator ``state_dict`` (CPU tensors) from a float32
-    JAX variable tree (``params`` and ``sn``)."""
-    return _state_dict_from_jax(variables, discriminator_key_map(cfg))
+    JAX variable tree (``params`` and ``sn``), under BigGAN-deep's names
+    when ``cfg`` is a ``BigGANDeepConfig``."""
+    deep = isinstance(cfg, BigGANDeepConfig)
+    key_map = deep_discriminator_key_map(cfg) if deep else discriminator_key_map(cfg)
+    return _state_dict_from_jax(variables, key_map)
 
 
 def tree_to_torch(tree: Mapping, key_map) -> Dict[str, torch.Tensor]:
@@ -263,5 +324,40 @@ def inception_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]
             key, value = "fc.bias", _ident(value)
         else:
             raise KeyError(f"unknown InceptionV3 variable {'/'.join(path)}")
+        out[key] = torch.from_numpy(value)
+    return out
+
+
+# --- ResNet-50 --------------------------------------------------------------------
+#
+# The inverse of ``ic_gan_tpu/models/resnet.py:load_torch_resnet50``: Flax
+# ``conv1``/``bn1``, ``layer{L}_{b}/{conv,bn}{1,2,3}`` and
+# ``downsample_{conv,bn}``, ``fc`` → torchvision's ``layer{L}.{b}.conv1``,
+# ``downsample.0``/``.1`` …; batch norm ``scale``/``bias``/``mean``/``var``
+# → ``weight``/``bias``/``running_mean``/``running_var``.
+
+_RESNET_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def resnet_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``ResNet50`` state dict (CPU tensors, torchvision's names)
+    from the JAX ResNet-50 variables (``{"params": ...}``)."""
+    out = {}
+    for path, value in _flatten(variables["params"]).items():
+        *mods, leaf = path
+        if mods[0].startswith("layer"):
+            layer, block = mods[0].split("_")
+            sub = {"downsample_conv": "downsample.0",
+                   "downsample_bn": "downsample.1"}.get(mods[1], mods[1])
+            prefix = f"{layer}.{block}.{sub}"
+        else:
+            prefix = mods[0]
+        if leaf == "kernel":
+            key, value = f"{prefix}.weight", (_t_conv(value) if np.ndim(value) == 4
+                                              else _t_linear(value))
+        elif prefix == "fc":
+            key, value = f"fc.{leaf}", _ident(value)
+        else:
+            key, value = f"{prefix}.{_RESNET_BN[leaf]}", _ident(value)
         out[key] = torch.from_numpy(value)
     return out

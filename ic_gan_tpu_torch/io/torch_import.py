@@ -5,9 +5,10 @@ The reference saves one ``.pth`` per module (``G.pth``, ``G_ema.pth``,
 ``D.pth``, their optimizers) and ``state_dict.pth`` holding the run's config
 and scores, with ``_<suffix>`` for its ``best%d``/``copy%d`` copies
 (``BigGAN_PyTorch/utils.py:1116-1167``).  The port's modules carry the
-upstream names, so a bundle loads into them as it is: no key map, no
-transposes.  Only the ``accum_counter`` buffers (standing statistics, the
-port's own) have no counterpart there; a load sets them to zero.
+upstream names, BigGAN-deep's included, so a bundle loads into them as it
+is: no key map, no transposes.  Only the ``accum_counter`` buffers
+(standing statistics, the port's own) have no counterpart there; a load
+sets them to zero.
 """
 
 from __future__ import annotations
@@ -19,14 +20,20 @@ import torch
 from torch.nn.utils import skip_init
 
 from ic_gan_tpu_torch import resolve_device
-from ic_gan_tpu_torch.models.biggan import BigGANConfig, Generator
+from ic_gan_tpu_torch.models.biggan import BigGANConfig
+from ic_gan_tpu_torch.models.biggan_deep import model_classes
 
 
 def config_from_state_dict(state_dict_config: Dict[str, Any]) -> BigGANConfig:
-    """A model config from the reference's saved config blob (the
+    """A BigGAN config from the reference's saved config blob (the
     ``config`` entry of ``state_dict.pth``), with its defaults where a key
-    is absent (``inference/utils.py:311-368``)."""
+    is absent (``inference/utils.py:311-368``).  A BigGAN-deep blob raises:
+    its geometry needs the caller's config (``cli.config.split_config``)."""
     c = state_dict_config
+    if c.get("model", "BigGAN") == "BigGANdeep":
+        raise ValueError(
+            "the bundle's config names model: BigGANdeep; pass its model config as "
+            "cfg (cli.config.split_config of the run's flags builds a BigGANDeepConfig)")
     return BigGANConfig(
         resolution=c.get("resolution", 128),
         n_classes=c.get("n_classes", 1000),
@@ -73,27 +80,41 @@ def load_pth_bundle(weights_dir: str, name: str = "G_ema", suffix: str = "") -> 
     return _load(os.path.join(weights_dir, fname))
 
 
-def load_generator_from_pth(weights_dir: str, name: str = "G_ema", suffix: str = "",
-                            cfg: BigGANConfig = None, device=None,
-                            strict: bool = True) -> Tuple[Generator, List[str], List[str]]:
-    """A port ``Generator`` (on ``device``, CUDA unless named) holding the
-    bundle's ``<name>[_<suffix>].pth``.  ``cfg`` defaults to the one
-    ``state_dict[_<suffix>].pth`` records.  Returns ``(g, missing,
-    unexpected)``: the port's keys the bundle lacks (``accum_counter`` aside,
-    zeroed) and the bundle's keys the port has no place for; with
-    ``strict`` either raises ``KeyError``."""
+def _load_module(kind: str, weights_dir: str, name: str, suffix: str, cfg, device,
+                 strict: bool):
     if cfg is None:
         sd_name = f"state_dict{('_' + suffix) if suffix else ''}.pth"
         cfg = config_from_state_dict(_load(os.path.join(weights_dir, sd_name))["config"])
-    g = skip_init(Generator, cfg, device=resolve_device(device))
-    result = g.load_state_dict(load_pth_bundle(weights_dir, name, suffix), strict=False)
+    cls = model_classes(cfg)[kind == "D"]
+    net = skip_init(cls, cfg, device=resolve_device(device))
+    result = net.load_state_dict(load_pth_bundle(weights_dir, name, suffix), strict=False)
     missing = []
     for key in result.missing_keys:
         if key.endswith("accum_counter"):
-            g.get_buffer(key).zero_()
+            net.get_buffer(key).zero_()
         else:
             missing.append(key)
     unexpected = list(result.unexpected_keys)
     if strict and (missing or unexpected):
         raise KeyError(f"{name} bundle: missing {missing[:10]}, unexpected {unexpected[:10]}")
-    return g, missing, unexpected
+    return net, missing, unexpected
+
+
+def load_generator_from_pth(weights_dir: str, name: str = "G_ema", suffix: str = "",
+                            cfg: BigGANConfig = None, device=None,
+                            strict: bool = True) -> Tuple[torch.nn.Module, List[str], List[str]]:
+    """A port generator (on ``device``, CUDA unless named) holding the
+    bundle's ``<name>[_<suffix>].pth``: BigGAN-deep's for a
+    ``BigGANDeepConfig``, BigGAN's otherwise.  ``cfg`` defaults to the one
+    ``state_dict[_<suffix>].pth`` records (BigGAN only).  Returns ``(g,
+    missing, unexpected)``: the port's keys the bundle lacks
+    (``accum_counter`` aside, zeroed) and the bundle's keys the port has no
+    place for; with ``strict`` either raises ``KeyError``."""
+    return _load_module("G", weights_dir, name, suffix, cfg, device, strict)
+
+
+def load_discriminator_from_pth(weights_dir: str, name: str = "D", suffix: str = "",
+                                cfg: BigGANConfig = None, device=None, strict: bool = True
+                                ) -> Tuple[torch.nn.Module, List[str], List[str]]:
+    """``load_generator_from_pth`` for the bundle's discriminator."""
+    return _load_module("D", weights_dir, name, suffix, cfg, device, strict)

@@ -14,8 +14,9 @@ The epoch loop, eval, checkpoints and early stopping of
   ``trainer.py:514-540``);
 - rotating ``copy%d`` saves (ref ``train_fns.py:219-236``).
 
-Data parallelism (the JAX trainer's mesh and multi-host feeding) waits for
-ROADMAP.md A.9, the BigGAN-deep backbone for A.11.
+The model config picks the backbone: BigGAN or BigGAN-deep
+(``models.biggan_deep.model_classes``).  Data parallelism (the JAX
+trainer's mesh and multi-host feeding) waits for ROADMAP.md A.9.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import torch
 from ic_gan_tpu_torch import resolve_device
 from ic_gan_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from ic_gan_tpu_torch.io.deploy import accumulate_standing_stats, fold_spectral_norm
-from ic_gan_tpu_torch.models.biggan import BigGANConfig, Discriminator, Generator
+from ic_gan_tpu_torch.models.biggan import BigGANConfig
+from ic_gan_tpu_torch.models.biggan_deep import model_classes
 from ic_gan_tpu_torch.models.layers import apply_weight_init
 from ic_gan_tpu_torch.train.state import GANTrainState, start_profile, step_seed, stop_profile
 from ic_gan_tpu_torch.train.step import TrainConfig, make_train_step
@@ -120,10 +122,7 @@ class Trainer:
         sampling_weights: Optional[np.ndarray] = None,
         device=None,
     ):
-        if not isinstance(model_cfg, BigGANConfig):
-            raise NotImplementedError(
-                f"{type(model_cfg).__name__}: only the BigGAN backbone is ported; "
-                "BigGAN-deep waits for ROADMAP.md A.11")
+        generator_cls, discriminator_cls = model_classes(model_cfg)
         if trainer_cfg.n_devices not in (None, 1):
             raise NotImplementedError(
                 f"n_devices {trainer_cfg.n_devices}: data parallelism is not ported yet "
@@ -137,8 +136,8 @@ class Trainer:
         self.device = resolve_device(device)
 
         init = torch.Generator(device=self.device).manual_seed(trainer_cfg.seed)
-        self.g = Generator(model_cfg, device=self.device, generator=init)
-        self.d = Discriminator(model_cfg, device=self.device, generator=init)
+        self.g = generator_cls(model_cfg, device=self.device, generator=init)
+        self.d = discriminator_cls(model_cfg, device=self.device, generator=init)
         if not trainer_cfg.skip_init:
             apply_weight_init(self.g, trainer_cfg.G_init, init)
             apply_weight_init(self.d, trainer_cfg.D_init, init)

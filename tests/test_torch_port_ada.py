@@ -23,6 +23,7 @@ from ic_gan_tpu.data import fast_warp as jwarp
 from ic_gan_tpu_torch.data import ada as tada
 from ic_gan_tpu_torch.data import fast_warp as twarp
 from ic_gan_tpu_torch.ops import row_shift as trs
+from test_torch_port_classcond import cheap_jit
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -58,7 +59,7 @@ def test_affine_warp_matches_jax_pallas_path():
     params = [(0.0, 1.0, 1.0, 2.5, -3.25), (0.7, 1.2, 0.9, 3, -2), (np.pi / 2 - 0.1, 1, 1, 20, 5)]
     A, t = (np.stack(v) for v in zip(*(_affine(*p) for p in params)))
     assert abs(A[2, 0, 0]) < abs(A[2, 1, 0])  # the third sample swaps axes
-    ref = jax.jit(lambda *a: jwarp.affine_warp(*a, use_pallas=True))(
+    ref = cheap_jit(lambda *a: jwarp.affine_warp(*a, use_pallas=True))(
         jnp.asarray(img), jnp.asarray(A), jnp.asarray(t))
     got = twarp.affine_warp(torch.from_numpy(np.ascontiguousarray(np.transpose(img, (0, 3, 1, 2)))),
                             torch.from_numpy(A), torch.from_numpy(t))
@@ -83,7 +84,7 @@ def bgc_fast():
         return out, vjp(jnp.cos(out))[0]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax.scipy.special, "erfinv", scipy.special.erfinv)
-        out, grad = jax.jit(run)(jnp.asarray(x))
+        out, grad = cheap_jit(run)(jnp.asarray(x))
     return x, np.asarray(out), np.asarray(grad)
 
 
@@ -122,7 +123,7 @@ def test_augment_pipe_at_p0_exact_geometry_matches_jax():
     exactly, the identity)."""
     x = _smooth((2, 24, 24, 3), 2)
     jpipe = jada.AugmentPipe.from_spec("bgc", geom_impl="exact")
-    ref = jax.jit(lambda a: jpipe(jax.random.PRNGKey(3), a, 0.0))(jnp.asarray(x))
+    ref = cheap_jit(lambda a: jpipe(jax.random.PRNGKey(3), a, 0.0))(jnp.asarray(x))
     _, got = _port_pipe(x, "exact", None, p=torch.tensor(0.0))
     np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-4)
     assert 0 < np.abs(_nhwc(got) - x).max() < 0.1

@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from ic_gan_tpu_torch.ops import bias_act as tba
+from test_torch_port_classcond import cheap_jit
 
 # The module, not the function that ``ic_gan_tpu.ops`` exports under its name.
 jba = importlib.import_module("ic_gan_tpu.ops.bias_act")
@@ -65,7 +66,7 @@ def _jax_side(act):
     def inner(gy, x, b, v):
         return jnp.sum(vjp(x, b, gy)[0] * v)
 
-    fn = jax.jit(lambda x, b, gy, v: vjp(x, b, gy) + jax.grad(inner, argnums=(0, 1, 2))(
+    fn = cheap_jit(lambda x, b, gy, v: vjp(x, b, gy) + jax.grad(inner, argnums=(0, 1, 2))(
         gy, x, b, v))
     return tuple(np.asarray(t) for t in fn(*(jnp.asarray(a) for a in _inputs(act))))
 

@@ -21,6 +21,7 @@ the CPU.
 import dataclasses
 import json
 import os
+import warnings
 
 import flax.linen
 import numpy as np
@@ -249,10 +250,23 @@ def test_split_config_matches_jax():
         assert len(tconfig.validate_config(dict(cfg, prompt="a", max_steps=3),
                                            backbone="biggan")) == 2
     assert jconfig.validate_config(dict(cfg, prompt="a", max_steps=3)) == []
+    # An inference CLI's key warns in a training config and not in its own.
+    with pytest.warns(UserWarning, match="'deploy_bf16' would be dropped"):
+        tconfig.split_config(dict(cfg, deploy_bf16=True))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert tconfig.validate_config(dict(cfg, deploy_bf16=True, num_samples=4),
+                                       backbone="biggan", inference=True) == []
     assert tconfig.split_config(dict(cfg, profile_dir="/p", profile_start=2))[2].profile_dir \
         == "/p"
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tconfig.split_config(dict(cfg, model="BigGANdeep"))
+    # BigGAN-deep: the JAX package's deep config, field for field.
+    deep = dict(cfg, model="BigGANdeep", G_depth=3)
+    jdeep, tdeep = jconfig.split_config(deep)[0], tconfig.split_config(deep)[0]
+    assert type(tdeep).__name__ == type(jdeep).__name__ == "BigGANDeepConfig"
+    for f in dataclasses.fields(tdeep):
+        if f.name != "dtype":
+            assert getattr(tdeep, f.name) == getattr(jdeep, f.name), f.name
+    assert (tdeep.G_depth, tdeep.effective_dim_z) == (3, jdeep.effective_dim_z)
     assert tconfig.validate_config({"exp_name": "x"}) == []      # the StyleGAN2 CLI's check
 
 

@@ -38,6 +38,30 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def cheap_jit(fn):
+    """``fn`` jitted, each input signature compiled at its first call with
+    XLA's CPU backend at its cheapest settings (optimization level 0, no
+    expensive LLVM passes): the same operations in the same precision, a
+    fraction of the compile time.  For toy forwards, whose compile outweighs
+    their run; the float64 train steps run ten times slower so compiled and
+    keep ``jax.jit``.  Arguments are arrays or Python values; the values are
+    part of the signature."""
+    jitted, cache = jax.jit(fn), {}
+
+    def call(*args):
+        leaves, tree = jax.tree.flatten(args)
+        key = (tree, jax.config.jax_enable_x64, tuple(
+            (np.shape(x), np.result_type(x).name) if hasattr(x, "dtype") else (type(x), x)
+            for x in leaves))
+        if key not in cache:
+            cache[key] = jitted.lower(*args).compile(compiler_options={
+                "xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True})
+        return cache[key](*args)
+
+    return call
+
+
 RES, MB, NC = 32, 4, 10
 JCFG = jbiggan.BigGANConfig(resolution=RES, G_ch=8, D_ch=8, G_attn="0", D_attn="0",
                             dim_z=40, n_classes=NC, shared_dim=16, shared_dim_feat=16,
@@ -171,7 +195,7 @@ def test_norm_style_generator_matches_jax(style):
     jg = jbiggan.Generator(jcfg)
     variables = numpy_variables(jg, rng, jnp.asarray(z), jnp.asarray(label), jnp.asarray(feats))
 
-    @jax.jit
+    @cheap_jit
     def both(v, z, label, feats):
         return (jg.apply(v, z, label, feats, train=False),
                 jg.apply(v, z, label, feats, train=True, mutable=["batch_stats", "sn"]))
@@ -210,7 +234,7 @@ def test_class_conditional_generator_and_discriminator_match_jax(cond):
     g_vars = numpy_variables(jg, rng, jnp.asarray(z), jnp.asarray(label), jf)
     d_vars = numpy_variables(jd, rng, jnp.asarray(x), jnp.asarray(label), jf)
 
-    @jax.jit
+    @cheap_jit
     def run(gv, dv, z, label, feats, x):
         return (jg.apply(gv, z, label, feats), jd.apply(dv, x, label, feats),
                 jd.apply(dv, x, label, feats, train=True, mutable=["sn"]))
@@ -248,8 +272,8 @@ def test_apply_weight_init_redraws_the_jax_leaves():
     jg = jbiggan.Generator(JCFG)
     params = numpy_variables(jg, rng, jnp.asarray(z), jnp.asarray(label),
                              jnp.asarray(feats))["params"]
-    redrawn = jax.jit(jlayers.apply_weight_init, static_argnames="style")(
-        params, jax.random.PRNGKey(4), style="N02")
+    redrawn = cheap_jit(lambda p, key: jlayers.apply_weight_init(p, key, style="N02"))(
+        params, jax.random.PRNGKey(4))
     flat = lambda tree: {tuple(p.key for p in path): np.asarray(v) for path, v in  # noqa: E731
                          jax.tree_util.tree_flatten_with_path(tree)[0]}
     before, after = flat(params), flat(redrawn)

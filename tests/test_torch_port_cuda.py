@@ -63,6 +63,7 @@ def _inputs(shape, dtype, seed=0):
     (2, 4096, 1024, 24, 96),     # the 128² G's widths
     (4, 1000, 250, 48, 192),     # ragged query and key tiles
     (1, 77, 19, 128, 256),       # the widest d and dv the kernel takes
+    (2, 4096, 1024, 64, 256),    # BigGAN-deep's 256² attention (512 channels)
 ])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
 def test_attention_kernel_matches_plain(shape, dtype, atol):
@@ -109,6 +110,7 @@ BWD_SHAPES = [
     (4, 1000, 250, 48, 192),     # ragged query and key tiles
     (3, 77, 19, 8, 16),          # narrow and ragged
     (1, 77, 19, 128, 256),       # the widest d and dv the kernel takes
+    (2, 4096, 1024, 64, 256),    # BigGAN-deep's 256² attention (512 channels)
 ]
 
 

@@ -26,6 +26,7 @@ from ic_gan_tpu_torch.io.convert import generator_state_dict_from_jax
 from ic_gan_tpu_torch.models import biggan as tbiggan
 from ic_gan_tpu_torch.models.layers import ConditionalBatchNorm, SelfAttention
 from ic_gan_tpu_torch.ops.spectral_norm import spectral_normalize
+from test_torch_port_classcond import _one_torch_thread, cheap_jit  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 4
@@ -73,14 +74,14 @@ def jax_model():
     z = rng.randn(BATCH, JCFG.effective_dim_z).astype(np.float32)
     feats = rng.randn(BATCH, JCFG.instance_sz).astype(np.float32)
     g = jbiggan.Generator(JCFG)
-    variables = jax.jit(lambda: g.init(jax.random.PRNGKey(0), jnp.asarray(z), None,
+    variables = cheap_jit(lambda: g.init(jax.random.PRNGKey(0), jnp.asarray(z), None,
                                        jnp.asarray(feats), train=False))()
     variables = _perturb(variables, rng, ("mean", "var", "gamma"))
     bn = variables["batch_stats"]["block_0"]["bn1"]["bn"]
     # Standing statistics: sums over two accumulations.
     bn.update(accum_counter=jnp.asarray([2.0]), mean=bn["mean"] * 2.0,
               var=bn["var"] * 2.0)
-    apply = jax.jit(lambda v, z, f: g.apply(v, z, None, f, train=False))
+    apply = cheap_jit(lambda v, z, f: g.apply(v, z, None, f, train=False))
     folded = jdeploy.fold_spectral_norm(variables)
     return dict(
         g=g, z=z, feats=feats, variables=variables, folded=folded, apply=apply,
@@ -228,8 +229,8 @@ def test_make_sampler_defaults_to_cuda(jax_model):
 def test_standing_forward_matches_jax(jax_model):
     folded = jax_model["folded"]
     z, feats = jax_model["z"], jax_model["feats"]
-    _, mut = jax_model["g"].apply(folded, z, None, feats, train=False,
-                                  standing=True, mutable=["batch_stats"])
+    _, mut = cheap_jit(lambda v, z, f: jax_model["g"].apply(
+        v, z, None, f, train=False, standing=True, mutable=["batch_stats"]))(folded, z, feats)
     ref = generator_state_dict_from_jax({**folded, **mut}, port_cfg())
     g = _port(folded, folded=True)
     _run(g, jax_model, standing=True)
@@ -281,8 +282,9 @@ def test_training_mode_updates_state_and_matches_jax(jax_model):
     """Train mode: batch-moment normalization, and every layer advances its
     SN state and moves its BN running statistics, as JAX's train=True."""
     variables = jax_model["variables"]
-    ref, mut = jax_model["g"].apply(variables, jax_model["z"], None, jax_model["feats"],
-                                    train=True, mutable=["batch_stats", "sn"])
+    ref, mut = cheap_jit(lambda v, z, f: jax_model["g"].apply(
+        v, z, None, f, train=True, mutable=["batch_stats", "sn"]))(
+            variables, jax_model["z"], jax_model["feats"])
     new = generator_state_dict_from_jax({"params": variables["params"], **mut}, port_cfg())
     g = _port(variables).train()
     before = {k: v.clone() for k, v in g.state_dict().items()}
@@ -320,7 +322,8 @@ def test_port_imports_no_jax():
     # The walk reaches every slice's modules, the StyleGAN2-ADA ones, the
     # StyleGAN2 loop's (utils/, cli/, the dataset, checkpoints, the importer),
     # the BigGAN loop's (DiffAugment, distributions, the .pth loaders, the
-    # trainer and its CLI) and the eval stack's (Inception, eval/) included.
+    # trainer and its CLI), the eval stack's (Inception, eval/) and the
+    # inference slice's (BigGAN-deep, ResNet-50, the sampling CLIs) included.
     rel = {os.path.relpath(f, os.path.join(ROOT, "ic_gan_tpu_torch")) for f in files}
     assert {"data/ada.py", "data/fast_warp.py", "ops/row_shift.py", "ops/bias_act.py",
             "ops/conv_resample.py", "models/stylegan2.py", "train/stylegan2_step.py",
@@ -330,7 +333,9 @@ def test_port_imports_no_jax():
             "io/stylegan_import.py", "data/augment.py", "data/distributions.py",
             "io/torch_import.py", "train/trainer.py", "cli/train.py",
             "cli/inference.py", "models/inception.py", "eval/__init__.py", "eval/fid.py",
-            "eval/prdc.py", "eval/pipeline.py", "eval/metrics.py"} <= rel
+            "eval/prdc.py", "eval/pipeline.py", "eval/metrics.py", "models/biggan_deep.py",
+            "models/resnet.py", "cli/generate_images.py", "cli/sample.py", "cli/demo.py",
+            "data/image_datasets.py"} <= rel
     bad = {(os.path.relpath(f, ROOT), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad

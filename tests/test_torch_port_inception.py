@@ -25,7 +25,7 @@ from ic_gan_tpu.models import inception as jinception
 from ic_gan_tpu_torch.io.convert import inception_state_dict_from_jax
 from ic_gan_tpu_torch.models import inception as tinception
 from test_inception_graph import GOLDEN_PATH, synthetic_state_dict, torchvision_inception_v3_manifest
-from test_torch_port_classcond import _one_torch_thread  # noqa: F401
+from test_torch_port_classcond import _one_torch_thread, cheap_jit  # noqa: F401
 
 DROPPED = ("AuxLogits", "num_batches_tracked")
 
@@ -58,7 +58,7 @@ def random_weights():
 @functools.lru_cache(maxsize=None)
 def _jax_apply(dtype):
     """The JAX forward, jitted once per dtype for the module."""
-    return jax.jit(jinception.InceptionV3(dtype=dtype).apply)
+    return cheap_jit(jinception.InceptionV3(dtype=dtype).apply)
 
 
 def _port(net, x_nhwc):

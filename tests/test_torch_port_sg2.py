@@ -23,6 +23,7 @@ from ic_gan_tpu_torch.io.convert import (
     stylegan2_variables_from_state_dict,
 )
 from ic_gan_tpu_torch.models import stylegan2 as tsg2
+from test_torch_port_classcond import cheap_jit
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -122,7 +123,7 @@ def _bar(case, ref):
 def test_generator_forward_matches_jax(nets):
     """noise_mode "const" with nonzero strengths, and (f32 case) "none"."""
     for mode in ("const", "none") if nets["case"] == "f32" else ("const",):
-        ref = jax.jit(lambda v: nets["jg"].apply(
+        ref = cheap_jit(lambda v: nets["jg"].apply(
             v, jnp.asarray(nets["z"]), nets["c"], jnp.asarray(nets["h"]),
             noise_mode=mode))(nets["g_vars"])
         with torch.no_grad():
@@ -133,7 +134,7 @@ def test_generator_forward_matches_jax(nets):
 
 
 def test_discriminator_forward_matches_jax(nets):
-    ref = jax.jit(lambda v: nets["jd"].apply(
+    ref = cheap_jit(lambda v: nets["jd"].apply(
         v, jnp.asarray(nets["x"]), nets["c"], jnp.asarray(nets["h"])))(nets["d_vars"])
     with torch.no_grad():
         got = nets["d"](_nchw(nets["x"]), _t(nets["c"]), _t(nets["h"]))
@@ -193,7 +194,7 @@ def test_modulated_conv2d_matches_jax(dtype, atol, up, demod):
     s = (1 + 0.3 * rng.randn(2, 8)).astype(np.float32)
     noise = rng.randn(2, 6 * up, 6 * up, 1).astype(np.float32)
     f = jnp.asarray(np.array([1, 3, 3, 1], np.float32) / 8)
-    ref = jax.jit(lambda a, b, c, n: jsg2.modulated_conv2d(
+    ref = cheap_jit(lambda a, b, c, n: jsg2.modulated_conv2d(
         a, b, c, noise=n, up=up, padding=1, resample_filter=np.asarray(f), demodulate=demod,
         flip_weight=(up == 1)))(jnp.asarray(x, dtype), jnp.asarray(w), jnp.asarray(s),
                                 jnp.asarray(noise))
@@ -210,7 +211,7 @@ def test_modulated_conv2d_matches_jax(dtype, atol, up, demod):
 def test_minibatch_std_matches_jax():
     x = np.random.RandomState(8).randn(6, 4, 3, 2).astype(np.float32)  # NHWC, 2 groups of 3
     for group, f in ((3, 1), (2, 2), (None, 1)):
-        ref = jax.jit(lambda a: jsg2.minibatch_std(a, group, f))(jnp.asarray(x))
+        ref = cheap_jit(lambda a: jsg2.minibatch_std(a, group, f))(jnp.asarray(x))
         got = tsg2.minibatch_std(_nchw(x), group, f)
         np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-6)
 

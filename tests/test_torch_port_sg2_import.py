@@ -27,6 +27,7 @@ from ic_gan_tpu.models import stylegan2 as jsg2
 from ic_gan_tpu_torch.io import stylegan_import as timport
 from ic_gan_tpu_torch.io.convert import stylegan2_state_dict_from_jax
 from ic_gan_tpu_torch.models import stylegan2 as tsg2
+from test_torch_port_classcond import cheap_jit
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -158,7 +159,7 @@ def test_loaded_generator_matches_jax(tf_pickle):
     g.load_state_dict(sd)
     jg = jsg2.Generator(jsg2.StyleGAN2Config(**vars(cfg)))
     z = np.random.RandomState(7).randn(3, ZDIM).astype(np.float32)
-    ref = np.asarray(jax.jit(lambda v, z_: jg.apply(v, z_, None, None, noise_mode="const"))(
+    ref = np.asarray(cheap_jit(lambda v, z_: jg.apply(v, z_, None, None, noise_mode="const"))(
         variables, jnp.asarray(z)))
     with torch.no_grad():
         got = g(torch.from_numpy(z), noise_mode="const").permute(0, 2, 3, 1).numpy()

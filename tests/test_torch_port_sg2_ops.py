@@ -22,6 +22,7 @@ from ic_gan_tpu.ops.pallas import bias_act as jpba
 from ic_gan_tpu.ops.pallas import row_shift as jrs
 from ic_gan_tpu_torch.ops import bias_act as tba
 from ic_gan_tpu_torch.ops import row_shift as trs
+from test_torch_port_classcond import cheap_jit
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,11 +66,11 @@ def test_bias_act_matches_jax_to_second_order(act):
     x = rng.randn(2, 128, 4, 4).astype(np.float32)      # NCHW; NHWC rows 32, C 128
     b = rng.randn(128).astype(np.float32)
     xj, bj, xt, bt = jnp.asarray(_nhwc(x)), jnp.asarray(b), torch.from_numpy(x), torch.from_numpy(b)
-    fused = np.asarray(jax.jit(lambda a, b: jpba.bias_act_fused(a, b, act, None, None))(xj, bj))
+    fused = np.asarray(cheap_jit(lambda a, b: jpba.bias_act_fused(a, b, act, None, None))(xj, bj))
     np.testing.assert_allclose(_nhwc(tba.bias_act(xt, bt, act=act)), fused, atol=1e-6)
     for bias, clamp in ((True, None), (False, None), (True, 1.0)):
         jb, tb = (bj, bt) if bias else (None, None)
-        ref = np.asarray(jax.jit(lambda a, b: jba.bias_act(a, b, act=act, clamp=clamp))(xj, jb))
+        ref = np.asarray(cheap_jit(lambda a, b: jba.bias_act(a, b, act=act, clamp=clamp))(xj, jb))
         for got in (tba.bias_act_ref(xt, tb, act=act, clamp=clamp),
                     tba.bias_act(xt, tb, act=act, clamp=clamp)):
             np.testing.assert_allclose(_nhwc(got), ref, atol=1e-6, err_msg=f"{bias} {clamp}")
@@ -79,7 +80,7 @@ def test_bias_act_matches_jax_to_second_order(act):
     def jf(x_, b_):
         return jnp.sum(jnp.square(jba.bias_act(x_, b_, act=act, clamp=clamp)))
 
-    jgx, jgb, jh = jax.jit(lambda a, b: jax.grad(jf, argnums=(0, 1))(a, b) + (
+    jgx, jgb, jh = cheap_jit(lambda a, b: jax.grad(jf, argnums=(0, 1))(a, b) + (
         jax.grad(lambda x_: jnp.sum(jnp.square(jax.grad(jf)(x_, b))))(a),))(xj, bj)
     xt, bt = xt.clone().requires_grad_(True), bt.clone().requires_grad_(True)
     y = tba.bias_act(xt, bt, act=act, clamp=clamp)
@@ -157,7 +158,7 @@ def test_row_shift_matches_pallas_interpret(l_out):
     plain version and the Function against the Pallas kernel, 1e-6 (the bar
     of tests/test_row_shift.py)."""
     x, off = _rows()
-    ref = np.asarray(jax.jit(lambda a, o: jrs.row_shift(a, o, True, l_out=l_out))(
+    ref = np.asarray(cheap_jit(lambda a, o: jrs.row_shift(a, o, True, l_out=l_out))(
         jnp.asarray(x), jnp.asarray(off)))
     oracle = np.asarray(jwarp._frac_shift_rows_2d(jnp.asarray(x), jnp.asarray(off), l_out))
     xt, ot = torch.from_numpy(x), torch.from_numpy(off)
@@ -176,7 +177,7 @@ def test_row_shift_integer_out_of_frame_and_frac_shift_rows():
     rng = np.random.RandomState(3)
     x4 = rng.randn(2, 5, 40, 3).astype(np.float32)
     off4 = ((rng.rand(2, 5) - 0.5) * 90).astype(np.float32)
-    ref4 = jax.jit(lambda a, o: jrs.frac_shift_rows(a, o, True, l_out=30))(
+    ref4 = cheap_jit(lambda a, o: jrs.frac_shift_rows(a, o, True, l_out=30))(
         jnp.asarray(x4), jnp.asarray(off4))
     got4 = trs.frac_shift_rows(torch.from_numpy(x4), torch.from_numpy(off4), 30)
     np.testing.assert_allclose(got4.numpy(), np.asarray(ref4), atol=1e-6)
@@ -193,7 +194,7 @@ def test_row_shift_adjoint_and_second_order_match_jax():
     oj = jnp.asarray(off)
     f = lambda a: jnp.sum(jnp.sin(jrs.row_shift(a, oj, True, l_out=l_out)))  # noqa: E731
 
-    @jax.jit  # one trace of the interpreted kernel for all three
+    @cheap_jit  # one trace of the interpreted kernel for all three
     def jax_side(a, c):
         _, vjp = jax.vjp(lambda b: jrs.row_shift(b, oj, True, l_out=l_out), a)
         return (vjp(c)[0], jax.grad(f)(a),
@@ -214,7 +215,7 @@ def test_row_shift_adjoint_and_second_order_match_jax():
 
 def test_row_shift_bf16_lerps_in_f32():
     x, off = _rows(L=32)
-    ref = jax.jit(lambda a, o: jrs.row_shift(a, o, True))(jnp.asarray(x, jnp.bfloat16),
+    ref = cheap_jit(lambda a, o: jrs.row_shift(a, o, True))(jnp.asarray(x, jnp.bfloat16),
                                                            jnp.asarray(off))
     got = trs.row_shift(torch.from_numpy(x).bfloat16(), torch.from_numpy(off))
     assert got.dtype == torch.bfloat16

@@ -14,6 +14,7 @@ from ic_gan_tpu.ops import conv_resample as jconv
 from ic_gan_tpu.ops import resample as jres
 from ic_gan_tpu_torch.ops import conv_resample as tconv
 from ic_gan_tpu_torch.ops import resample as tres
+from test_torch_port_classcond import cheap_jit
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,7 +57,7 @@ def test_upfirdn2d_family_matches_jax(op, kw, taps):
         fj = jres.setup_filter(jnp.asarray(taps, jnp.float32), separable=separable)
         ft = tres.setup_filter(taps, separable=separable)
         np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-6)
-        ref = jax.jit(lambda a: getattr(jres, op)(a, fj, **kw))(jnp.asarray(_nhwc(x)))
+        ref = cheap_jit(lambda a: getattr(jres, op)(a, fj, **kw))(jnp.asarray(_nhwc(x)))
         got = getattr(tres, op)(torch.from_numpy(x), ft, **kw)
         np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-5,
                                    err_msg=f"separable={separable}")
@@ -96,7 +97,7 @@ def test_upfirdn2d_gradients_match_jax_to_second_order(kw, taps):
     x = _img(seed=9)
     fj = jres.setup_filter(jnp.asarray(taps, jnp.float32))
     f = lambda a: jnp.sum(jnp.sin(jres.upfirdn2d(a, fj, **kw)))  # noqa: E731
-    jg, jh = jax.jit(lambda a: (jax.grad(f)(a), jax.grad(
+    jg, jh = cheap_jit(lambda a: (jax.grad(f)(a), jax.grad(
         lambda b: jnp.sum(jnp.square(jax.grad(f)(b))))(a)))(jnp.asarray(_nhwc(x)))
     xt = torch.from_numpy(x).requires_grad_(True)
     y = tres.upfirdn2d(xt, tres.setup_filter(taps), **kw)

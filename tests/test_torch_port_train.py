@@ -41,6 +41,7 @@ from ic_gan_tpu_torch.ops import spectral_norm as tsn
 from ic_gan_tpu_torch.train import losses as tlosses
 from ic_gan_tpu_torch.train import state as tstate
 from ic_gan_tpu_torch.train import step as tstep
+from test_torch_port_classcond import _one_torch_thread, cheap_jit  # noqa: F401
 
 RES, MB = 32, 4
 JCFG = jbiggan.BigGANConfig(resolution=RES, G_ch=16, D_ch=16, G_attn="16", D_attn="16",
@@ -223,7 +224,7 @@ def test_make_optimizer_matches_optax():
 
 def test_ortho_grad_term_matches_jax(models):
     d = _port_d(models["d_vars"])
-    ref = tree_to_torch(jax.jit(lambda p: jstep.ortho_grad_term(p, 1e-3))(
+    ref = tree_to_torch(cheap_jit(lambda p: jstep.ortho_grad_term(p, 1e-3))(
         models["d_vars"]["params"]), discriminator_key_map(port_cfg()))
     got = tstep.ortho_grad_term(d, 1e-3)
     assert set(got) == {k for k, v in ref.items() if v.dim() >= 2}
@@ -250,7 +251,7 @@ def test_discriminator_converter_matches_export(models):
 def test_discriminator_forward_matches_jax(models, train):
     """Eval, and train mode, where every layer also advances its u/sv."""
     x, feats = models["batch"]["x"][0], models["batch"]["feats"][0]
-    apply = jax.jit(lambda v, x, f: models["d"].apply(
+    apply = cheap_jit(lambda v, x, f: models["d"].apply(
         v, x, None, f, train=train, mutable=["sn"] if train else False))
     out = apply(models["d_vars"], jnp.asarray(x), jnp.asarray(feats))
     ref, mut = out if train else (out, None)
@@ -270,10 +271,12 @@ def test_discriminator_forward_matches_jax(models, train):
 
 def test_unported_discriminator_options_raise():
     """The class heads and DiffAugment are ported (``test_torch_port_
-    classcond.py``, ``test_torch_port_train_cc.py``); what still raises in
-    the BigGAN training path is data parallelism (ROADMAP.md A.9) and the
-    BigGAN-deep backbone (A.11)."""
+    classcond.py``, ``test_torch_port_train_cc.py``), and so is the
+    BigGAN-deep backbone (``test_torch_port_biggan_deep.py``); what still
+    raises in the BigGAN training path is data parallelism (ROADMAP.md A.9)
+    and a model config of neither backbone."""
     from ic_gan_tpu_torch.cli.config import split_config
+    from ic_gan_tpu_torch.models.biggan_deep import BigGANDeepConfig
     from ic_gan_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = port_cfg(class_cond=True)
@@ -282,10 +285,11 @@ def test_unported_discriminator_options_raise():
     tstep.make_train_step(tstep.TrainConfig(DiffAugment="translation"), 35)
     with pytest.raises(NotImplementedError, match="A.9"):
         Trainer(port_cfg(), tstep.TrainConfig(), TrainerConfig(n_devices=2), None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="not a BigGAN or BigGAN-deep"):
         Trainer(object(), tstep.TrainConfig(), TrainerConfig(), None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        split_config({"model": "BigGANdeep"})
+    deep = split_config({"model": "BigGANdeep"})[0]
+    assert isinstance(deep, BigGANDeepConfig)
+    assert (deep.dim_z, deep.G_depth, deep.D_depth, deep.effective_dim_z) == (128, 2, 2, 128)
 
 
 # --- one whole train step ------------------------------------------------------
