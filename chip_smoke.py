@@ -95,7 +95,19 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    sampler; ``cli/demo.py`` with a ResNet-50 from a seed, its ranking against
    the cosine similarities the same network gives, and ResNet-50's time at
    batch 16; ``make_conditioned_sampler`` over an in-memory dataset in both
-   balance modes.  B1 is counted on each path.
+   balance modes.  B1 is counted on each path;
+17. data preparation and the eval CLIs: ``prepare_data``'s cores on the
+   card (10,000 images at 256² through ResNet-50 with the flip bank, the
+   first batch against direct calls bit for bit; the exact k-NN and 100
+   Lloyd iterations of k-means with K 1000 over a 115,846 × 2048 bank, the
+   size of ImageNet-LT's training split, against float64 on the host; the
+   FID moments of 5,000 of the images), then ``cli/test.py`` (phase 16's
+   IC-GAN G, deploy_bf16, standing statistics, PRDC, a sample npz) and
+   ``cli/calc_metrics.py`` (phase 12's StyleGAN2 model, FID, KID, PR, IS
+   and PPL with LPIPS) over those images in memory (the card's machine has
+   no ``h5py``), each against direct calls on the same draws, with
+   img/s, seconds and peak memory; B1 counted on the first CLI's path, B4
+   on the second's.
 
 ``--profile`` adds device-time breakdowns of one sampler batch, one BigGAN
 train step, one StyleGAN2 main and reg step, one eval batch (G and
@@ -372,6 +384,30 @@ INFERENCE_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_inference")
 INFERENCE_BATCH = 32               # load_model_inference's default batch
 STORED_INSTANCES = 1000            # k-means centres of the stored-instances file
 DEMO_SAMPLES = 16
+
+# --- data preparation and the eval CLIs (phase 17) ------------------------------------------
+# prepare_data's cores: 10,000 uint8 images at 256² through ResNet-50 (224²,
+# the flip bank) at batch 128; the exact k-NN and k-means at the size of
+# ImageNet-LT's training split (Liu et al. 2019, the split IC-GAN trains on):
+# 115,846 × 2048 f32 rows, k 51 (k_nn 50 and the row itself), K 1000 in 100
+# Lloyd iterations; each checked against float64 on the host, ties within
+# 1e-4 left out; FID moments of the first 5,000 images.  Then both eval CLIs
+# over those images in memory: cli/test.py on phase 16's IC-GAN G (1,024
+# images, PRDC over 1,024 real ones, a 256-image npz) and cli/calc_metrics.py
+# on phase 12's StyleGAN2 model (five metrics at 1,024 images, PPL at 512),
+# each against direct calls on the same draws.  The image counts (moments
+# 10,000, the CLIs 2,048) were halved to keep the phase near 90 s; the bank
+# and K are full size.
+PREP_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_prepare")
+PREP_IMAGES, PREP_RES, PREP_BATCH = 10000, 256, 128
+MOMENTS_IMAGES = 5000                    # the first half of the step-1 images
+BANK_ROWS, BANK_CLUSTERS, BANK_K = 115846, 1000, 51
+KNN_CHECK_ROWS, KNN_TOL = 256, 1e-4
+KMEANS_K, KMEANS_ITERS, KMEANS_CHECK_ROWS, KMEANS_CHECK_CENTROIDS = 1000, 100, 4096, 64
+TEST_CLI_IMAGES, TEST_CLI_BATCH, TEST_CLI_NPZ = 1024, 128, 256
+CALC_IMAGES, CALC_BATCH, PPL_SAMPLES = 1024, 64, 512
+CALC_METRICS = ("fid50k_full", "kid50k_full", "pr50k3_full", "is50k", "ppl2_wend")
+CLI_REL = 1e-4       # a CLI's metrics against direct calls on the same draws
 
 
 def log(msg: str):
@@ -3004,6 +3040,447 @@ def phase_inference(device, deep) -> dict:
     return out
 
 
+# --- data preparation and the eval CLIs (phase 17) -----------------------------------------
+
+@contextlib.contextmanager
+def memory_dataset(make):
+    """``get_dataset_hdf5`` replaced by ``make()`` for the block: the card's
+    machine has no ``h5py``, so the CLIs read an in-memory dataset."""
+    from ic_gan_tpu_torch.data import datasets as datasets_mod
+
+    real = datasets_mod.get_dataset_hdf5
+    datasets_mod.get_dataset_hdf5 = lambda **kw: make()
+    try:
+        yield
+    finally:
+        datasets_mod.get_dataset_hdf5 = real
+
+
+class MemoryDataset:
+    """uint8 NCHW images and their unit instance features in host memory,
+    behind the methods the eval reads on an ``HDF5Dataset``: real images
+    through ``_get_images``/``_norm`` (its formula), instance-balanced
+    conditioning drawn from a numpy stream ``rng``."""
+
+    which_nn_balance = "instance_balance"
+    root = "chip_smoke_memory_dataset"
+
+    def __init__(self, imgs, feats, seed):
+        self.imgs, self.feats = imgs, feats
+        self.possible_sampling_idxs = np.arange(len(imgs))
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def _get_images(self, idxs):
+        return self.imgs[np.asarray(idxs)]
+
+    @staticmethod
+    def _norm(x):
+        return (x.astype(np.float32) / 255.0 - 0.5) * 2.0
+
+    def get_label(self, idxs):
+        return np.zeros(len(np.atleast_1d(idxs)), np.int64)
+
+    def sample_conditioning_instance_balance(self, n):
+        return None, self.feats[self.rng.integers(0, len(self.feats), n)]
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if DEV == "cuda" else 0.0
+
+
+def reset_peak():
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _near_tie(d_sorted, i, tol):
+    """Whether entry ``i`` of an ascending row lies within ``tol`` of a
+    neighbour."""
+    return (i > 0 and d_sorted[i] - d_sorted[i - 1] <= tol) or (
+        i + 1 < len(d_sorted) and d_sorted[i + 1] - d_sorted[i] <= tol)
+
+
+def _prepare_features(device) -> dict:
+    """Step 1: ``PREP_IMAGES`` uint8 images through the ``extract_features``
+    core with the flip bank, on a ResNet-50 from a seed read back from a
+    torchvision-format ``.pth``."""
+    from ic_gan_tpu_torch.cli.prepare_data import iter_features, load_feature_extractor
+    from ic_gan_tpu_torch.models.resnet import ResNet50, preprocess
+
+    gen = torch.Generator(device=device).manual_seed(90)
+    imgs = torch.randint(0, 256, (PREP_IMAGES, 3, PREP_RES, PREP_RES), generator=gen,
+                         device=device, dtype=torch.uint8).cpu().numpy()
+    pth = os.path.join(PREP_DIR, "rn50.pth")
+    torch.save(ResNet50(device="cpu", generator=torch.Generator().manual_seed(91)).state_dict(),
+               pth)
+    net = load_feature_extractor(pth, device=device)
+    rows = list(iter_features(imgs[:PREP_BATCH], net, PREP_BATCH))   # warm-up
+    reset_peak()
+    sync()
+    t0 = time.perf_counter()
+    rows = list(iter_features(imgs, net, PREP_BATCH))
+    sync()
+    secs = time.perf_counter() - t0
+    feats = np.concatenate([r[2] for r in rows])
+    flipped = np.concatenate([r[3] for r in rows])
+    x = torch.as_tensor(imgs[:PREP_BATCH], device=device).float() / 255.0
+    with torch.inference_mode():
+        direct = net(preprocess(x))[0].cpu().numpy()
+        direct_flip = net(preprocess(x.flip(3)))[0].cpu().numpy()
+    bitwise = (np.array_equal(direct, feats[:PREP_BATCH])
+               and np.array_equal(direct_flip, flipped[:PREP_BATCH]))
+    if feats.shape != (PREP_IMAGES, 2048) or not np.isfinite(feats).all() or not bitwise:
+        raise AssertionError(f"features {feats.shape}, first batch bit for bit: {bitwise}")
+    log_card(f"prepare_data features (ResNet-50 from a seed via a torchvision .pth, "
+             f"{PREP_IMAGES} uint8 images at {PREP_RES}^2 -> 224^2 bicubic, batch {PREP_BATCH}, "
+             f"flip bank): {secs:.2f} s, {2 * PREP_IMAGES / secs:.1f} img/s counting the flips "
+             f"({PREP_IMAGES / secs:.1f} source img/s), peak {peak_gib():.2f} GiB; the first "
+             f"batch equals direct ResNet50(preprocess(x)) calls bit for bit")
+    return dict(imgs=imgs, feats=feats, features_s=secs,
+                features_img_per_s=2 * PREP_IMAGES / secs, features_peak_gib=peak_gib())
+
+
+def _bank(device) -> np.ndarray:
+    """``BANK_ROWS`` × 2048 rows from a mixture of ``BANK_CLUSTERS``
+    Gaussians drawn from a seed on the card, unit-normalized."""
+    gen = torch.Generator(device=device).manual_seed(92)
+    n, dim = BANK_ROWS, 2048
+    centres = torch.randn((BANK_CLUSTERS, dim), generator=gen, device=device)
+    which = torch.randint(0, BANK_CLUSTERS, (n,), generator=gen, device=device)
+    x = centres[which] + 0.5 * torch.randn((n, dim), generator=gen, device=device)
+    return F.normalize(x, dim=1).cpu().numpy()
+
+
+def _knn_and_kmeans(device) -> dict:
+    """Steps 2 and 3: the exact k-NN table (``nns_of``, ``build_nns``' core)
+    and the k-means selection (``kmeans`` + ``closest_real_to_centroids``,
+    ``build_kmeans``' core) over an ImageNet-LT-sized bank, each checked
+    against float64 on the host."""
+    from ic_gan_tpu_torch.cli.prepare_data import nns_of
+    from ic_gan_tpu_torch.data.feature_bank import closest_real_to_centroids, kmeans
+
+    bank = _bank(device)
+    n, dim = bank.shape
+    reset_peak()
+    sync()
+    t0 = time.perf_counter()
+    idx, radii = nns_of(bank, k_nn=BANK_K - 1, device=device)
+    knn_s = time.perf_counter() - t0
+    knn_peak = peak_gib()
+    flops = 2.0 * n * n * dim
+    rng = np.random.RandomState(93)
+    b64 = bank.astype(np.float64)
+    b2 = (b64 * b64).sum(1)
+    rows = rng.choice(n, KNN_CHECK_ROWS, replace=False)
+    d64 = b2[rows, None] + b2[None] - 2.0 * (b64[rows] @ b64.T)
+    worst_d = worst_r = 0.0
+    mismatched = 0
+    for j, q in enumerate(rows):
+        order = np.sort(d64[j])[:BANK_K + 1]       # one more, for a tie at the k-th
+        worst_d = max(worst_d, float(np.abs(d64[j, idx[q]] - order[:BANK_K]).max()))
+        worst_r = max(worst_r, abs(float(radii[q]) ** 2 - float(order[BANK_K - 1])))
+        want = np.argsort(d64[j], kind="stable")[:BANK_K]
+        mismatched += sum(idx[q, i] != want[i] and not _near_tie(order, i, KNN_TOL)
+                          for i in range(BANK_K))
+    if idx.shape != (n, BANK_K) or (idx[:, 0] != np.arange(n)).any() or worst_d > KNN_TOL \
+            or worst_r > KNN_TOL or mismatched:
+        raise AssertionError(f"knn: worst |d - d64| {worst_d:.3g}, radii² {worst_r:.3g}, "
+                             f"{mismatched} indices off away from near-ties")
+    log_card(f"prepare_data k-NN (nns_of: {n} x {dim} f32 bank, a mixture of {BANK_CLUSTERS} "
+             f"Gaussians, unit rows, k {BANK_K}): {knn_s:.2f} s, {flops / knn_s / 1e12:.1f} "
+             f"TFLOP/s of 2*N^2*D, peak {knn_peak:.2f} GiB; {KNN_CHECK_ROWS} rows against "
+             f"float64: distances within {worst_d:.2e}, radii^2 within {worst_r:.2e}, indices "
+             f"equal away from near-ties ({KNN_TOL})")
+
+    reset_peak()
+    sync()
+    t0 = time.perf_counter()
+    centroids, assign = kmeans(bank, num_clusters=KMEANS_K, num_iters=KMEANS_ITERS, seed=0,
+                               device=device)
+    centres = closest_real_to_centroids(bank, centroids, device=device)
+    km_s = time.perf_counter() - t0
+    km_peak = peak_gib()
+    c64 = centroids.astype(np.float64)
+    c2 = (c64 * c64).sum(1)
+    rows = rng.choice(n, KMEANS_CHECK_ROWS, replace=False)
+    dc = b2[rows, None] + c2[None] - 2.0 * (b64[rows] @ c64.T)
+    top2 = np.sort(dc, axis=1)[:, :2]
+    off = (assign[rows] != dc.argmin(1)) & (top2[:, 1] - top2[:, 0] > KNN_TOL)
+    sums = torch.zeros((KMEANS_K, dim), dtype=torch.float64).index_add_(
+        0, torch.as_tensor(assign), torch.from_numpy(b64)).numpy()
+    counts = np.bincount(assign, minlength=KMEANS_K)
+    filled = counts > 0
+    mean_err = float(np.abs(sums[filled] / counts[filled, None] - c64[filled]).max())
+    picks = rng.choice(KMEANS_K, KMEANS_CHECK_CENTROIDS, replace=False)
+    dr = c2[picks, None] + b2[None] - 2.0 * (c64[picks] @ b64.T)
+    srt = np.sort(dr, axis=1)[:, :2]
+    wrong_pick = (centres[picks] != dr.argmin(1)) & (srt[:, 1] - srt[:, 0] > KNN_TOL)
+    if off.any() or mean_err > 1e-5 or wrong_pick.any():
+        raise AssertionError(f"kmeans: {int(off.sum())} rows not at their nearest centroid, "
+                             f"centroid vs mean {mean_err:.3g}, {int(wrong_pick.sum())} picks")
+    log_card(f"prepare_data k-means (K {KMEANS_K}, {KMEANS_ITERS} Lloyd iterations, then "
+             f"closest_real_to_centroids): {km_s:.2f} s, peak {km_peak:.2f} GiB; "
+             f"{KMEANS_CHECK_ROWS} rows at their float64-nearest final centroid (away from "
+             f"near-ties), centroids the means of their rows within {mean_err:.2e}, "
+             f"{KMEANS_CHECK_CENTROIDS} picks the float64-nearest rows; {int(filled.sum())} "
+             f"clusters filled")
+    return dict(knn_s=knn_s, knn_tflops=flops / knn_s / 1e12, knn_peak_gib=knn_peak,
+                kmeans_s=km_s, kmeans_peak_gib=km_peak)
+
+
+def _moments(device, imgs) -> dict:
+    """Step 4: ``compute_dataset_moments`` over the first ``MOMENTS_IMAGES``
+    step-1 images in memory (Inception f32, random weights from a seed),
+    ``save_moments`` and a reload."""
+    from ic_gan_tpu_torch.eval.pipeline import compute_dataset_moments, save_moments
+
+    ev = InceptionEvaluator(device=device)
+    ds = MemoryDataset(imgs[:MOMENTS_IMAGES], None, 0)
+    sync()
+    t0 = time.perf_counter()
+    mu, sigma, _ = compute_dataset_moments(ds, ev, batch=PREP_BATCH)[""]
+    secs = time.perf_counter() - t0
+    name = moments_filename(PREP_RES)
+    save_moments(PREP_DIR, name, mu, sigma)
+    back = np.load(os.path.join(PREP_DIR, name))
+    if mu.shape != (2048,) or sigma.shape != (2048, 2048) or not np.isfinite(sigma).all() \
+            or not (np.array_equal(back["mu"], mu) and np.array_equal(back["sigma"], sigma)):
+        raise AssertionError("moments")
+    log_card(f"prepare_data moments (compute_dataset_moments, {len(ds)} images at "
+             f"{PREP_RES}^2, Inception f32 at batch {PREP_BATCH}, in memory): {secs:.2f} s, "
+             f"{len(ds) / secs:.1f} img/s; saved and reloaded as {name}")
+    return dict(moments_s=secs, moments_img_per_s=len(ds) / secs)
+
+
+def _rel_delta(got, want) -> float:
+    return max(abs(float(got[k]) - float(v)) / max(abs(float(v)), 1e-12)
+               for k, v in want.items() if not isinstance(v, str))
+
+
+def _test_cli(device, imgs, feats) -> dict:
+    """Step 5: ``cli/test.py``'s ``main`` on a native checkpoint of phase 5's
+    IC-GAN G, ``deploy_bf16``, with PRDC, standing statistics and a sample
+    npz, against a direct ``evaluate_generator`` call on the same draws."""
+    from ic_gan_tpu_torch.cli import inference as inf
+    from ic_gan_tpu_torch.cli import test as test_cli
+    from ic_gan_tpu_torch.cli.config import split_config
+    from ic_gan_tpu_torch.eval.pipeline import cached_real_features
+    from ic_gan_tpu_torch.io.checkpoint import save_checkpoint
+
+    cfg, tcfg = split_config(INFERENCE_FLAT)[:2]
+    gen = torch.Generator(device=device).manual_seed(80)
+    g, d = Generator(cfg, device=device, generator=gen), Discriminator(cfg, device=device,
+                                                                        generator=gen)
+    set_gamma(g, d)
+    state = GANTrainState.create(g, d, tcfg.g_optimizer(), tcfg.d_optimizer())
+    save_checkpoint(os.path.join(PREP_DIR, "weights"), "icgan", state,
+                    config={"best_FID": 12.5, "best_IS": 3.0}, suffix="best0")
+    del state, g, d
+    torch.cuda.empty_cache()
+    flat = dict(INFERENCE_FLAT, weights_root=os.path.join(PREP_DIR, "weights"),
+                experiment_name="icgan", deploy_bf16=True, data_root=PREP_DIR, seed=5,
+                batch_size=TEST_CLI_BATCH, eval_batch_size=TEST_CLI_BATCH,
+                num_inception_images=TEST_CLI_IMAGES, eval_prdc=True,
+                prdc_ref_images=TEST_CLI_IMAGES, accumulate_stats=True, sample_npz=True,
+                sample_num_npz=TEST_CLI_NPZ, npz_path=os.path.join(PREP_DIR, "samples.npz"),
+                metrics_out=os.path.join(PREP_DIR, "metrics.npy"))
+    argv = _flat_argv(os.path.join(PREP_DIR, "test.json"), flat, device)
+
+    def dataset():
+        return MemoryDataset(imgs, feats, 6)
+
+    with memory_dataset(dataset):
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        got = test_cli.main(argv)
+        sync()
+        secs = time.perf_counter() - t0
+        launches = counts()
+    # The same calls by hand, in the CLI's order.
+    sampler, mcfg = inf.load_model_inference(flat, device=device)
+    ds = dataset()
+    sampler = sampler.with_standing_stats(lambda n: ds.sample_conditioning_instance_balance(n))
+    sample = inf.make_conditioned_sampler(flat, sampler, mcfg, ds)
+    ev = InceptionEvaluator(device=device)
+    ref = np.load(os.path.join(PREP_DIR, moments_filename(PREP_RES)))
+    prdc = cached_real_features(ds, ev, os.path.join(PREP_DIR, "feature_cache"),
+                                TEST_CLI_IMAGES, batch=TEST_CLI_BATCH)
+    want = evaluate_generator(test_cli.nchw(sample), ev, ref["mu"], ref["sigma"],
+                              num_images=TEST_CLI_IMAGES, batch=TEST_CLI_BATCH,
+                              prdc_ref_features=prdc, prdc_nearest_k=5,
+                              feature_fn=inf.make_conditioned_feature_fn(sample, ev))
+    delta = _rel_delta(got, want)
+    npz = np.load(flat["npz_path"])["x"]
+    saved = np.load(flat["metrics_out"], allow_pickle=True).item()
+    batches = math.ceil(TEST_CLI_IMAGES / TEST_CLI_BATCH)
+    expect = 16 + batches + math.ceil(TEST_CLI_NPZ / TEST_CLI_BATCH)  # standing, eval, npz
+    if delta > CLI_REL or launches != dict(B1=expect, B2=0, B3=0, B4=0, B4bwd=0) \
+            or npz.shape != (TEST_CLI_NPZ, 3, cfg.resolution, cfg.resolution) \
+            or npz.dtype != np.uint8 or set(saved) != set(want) \
+            or not all(np.isfinite(v) for v in want.values()):
+        raise AssertionError(f"test CLI: max rel |Δ| {delta:.3g} against direct calls, "
+                             f"launches {launches} (expected B1 {expect}), npz {npz.shape}")
+    log_card(f"cli/test.py (native checkpoint of the {cfg.resolution}^2 ch{cfg.G_ch} IC-GAN G, "
+             f"deploy_bf16, accumulate_stats, {TEST_CLI_IMAGES} images at batch "
+             f"{TEST_CLI_BATCH}, eval_prdc over {TEST_CLI_IMAGES} real images, sample_npz "
+             f"{TEST_CLI_NPZ}; dataset in memory: no h5py on this machine): {secs:.2f} s end to "
+             f"end with the load; FID {got['FID']:.4f} IS {got['IS_mean']:.4f} precision "
+             f"{got['precision']:.4f} recall {got['recall']:.4f}; max rel |Δ| against a direct "
+             f"evaluate_generator on the same draws {delta:.2e}; B1 launches {launches['B1']} "
+             f"(16 standing + {batches} eval + {expect - 16 - batches} npz batches)")
+    return dict(test_s=secs, test_launches=launches["B1"], test_delta=delta)
+
+
+def _sg2_snapshot(device) -> str:
+    """Phase 12's StyleGAN2 model (256², ``h_dim`` 2048) from a seed, layer
+    noise on, as a torch network snapshot (a dict of modules carrying their
+    ``init_kwargs``, which ``load_network_pkl`` reads)."""
+    import pickle
+
+    cfg = sg2.StyleGAN2Config(**SG2_MODEL)
+    g = sg2.Generator(cfg, device=device, generator=torch.Generator(device=device).manual_seed(94))
+    with torch.no_grad():
+        for name, p in g.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(0.1)
+    g = g.cpu()
+    g.init_kwargs = dict(
+        img_resolution=cfg.img_resolution, z_dim=cfg.z_dim, c_dim=cfg.c_dim, h_dim=cfg.h_dim,
+        w_dim=cfg.w_dim, mapping_kwargs=dict(num_layers=cfg.num_mapping_layers),
+        synthesis_kwargs=dict(channel_base=cfg.channel_base, channel_max=cfg.channel_max,
+                              num_fp16_res=cfg.num_fp16_res, conv_clamp=cfg.conv_clamp,
+                              architecture=cfg.architecture_g))
+    path = os.path.join(PREP_DIR, "sg2-snapshot.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"G_ema": g}, f)
+    return path
+
+
+def _calc_metrics_cli(device, imgs, feats) -> dict:
+    """Step 6: ``cli/calc_metrics.py``'s ``main`` on the StyleGAN2 snapshot,
+    five registry metrics, LPIPS from a VGG16 file through
+    ``$ICGAN_VGG16_WEIGHTS``, each metric against a direct ``calc_metric``
+    call on the same draws; LPIPS on the card against the CPU."""
+    from ic_gan_tpu_torch.cli import calc_metrics as calc_cli
+    from ic_gan_tpu_torch.cli import inference as inf
+    from ic_gan_tpu_torch.cli.test import nchw
+    from ic_gan_tpu_torch.eval.metrics import calc_metric, make_lpips_feature_fn
+    from ic_gan_tpu_torch.eval.pipeline import cached_real_features
+    from ic_gan_tpu_torch.models.vgg import VGG16, LPIPSEvaluator
+
+    pkl = _sg2_snapshot(device)
+    vgg_path = os.path.join(PREP_DIR, "vgg16.pth")
+    torch.save(VGG16(device="cpu", generator=torch.Generator().manual_seed(95)).state_dict(),
+               vgg_path)
+    flat = dict(backbone="stylegan2", network_pkl=pkl, resolution=PREP_RES, data_root=PREP_DIR,
+                seed=7, batch_size=CALC_BATCH, eval_batch_size=CALC_BATCH,
+                num_inception_images=CALC_IMAGES, ppl_num_samples=PPL_SAMPLES,
+                metrics=",".join(CALC_METRICS), run_dir=os.path.join(PREP_DIR, "metrics"))
+    argv = _flat_argv(os.path.join(PREP_DIR, "calc.json"), flat, device)
+
+    def dataset():
+        return MemoryDataset(imgs, feats, 8)
+
+    env = os.environ.get("ICGAN_VGG16_WEIGHTS")
+    os.environ["ICGAN_VGG16_WEIGHTS"] = vgg_path
+    try:
+        with memory_dataset(dataset):
+            reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            got = calc_cli.main(argv)
+            sync()
+            secs = time.perf_counter() - t0
+            launches = counts()
+    finally:
+        if env is None:
+            os.environ.pop("ICGAN_VGG16_WEIGHTS")
+        else:
+            os.environ["ICGAN_VGG16_WEIGHTS"] = env
+    # The same calls by hand, in the CLI's order.
+    sampler, mcfg = inf.load_model_inference(flat, device=device)
+    ds = dataset()
+    sample = nchw(inf.make_conditioned_sampler(flat, sampler, mcfg, ds))
+    ev = InceptionEvaluator(device=device)
+    reals = cached_real_features(ds, ev, os.path.join(PREP_DIR, "feature_cache"), CALC_IMAGES,
+                                 batch=CALC_BATCH)
+    ref = np.load(os.path.join(PREP_DIR, moments_filename(PREP_RES)))
+    common = dict(evaluator=ev, sample_fn=sample, num_images=CALC_IMAGES, batch=CALC_BATCH)
+    want = {}
+    for name, extra in (("fid50k_full", dict(ref_mu=ref["mu"], ref_sigma=ref["sigma"])),
+                        ("kid50k_full", dict(real_features=reals)),
+                        ("pr50k3_full", dict(real_features=reals)), ("is50k", {})):
+        want.update(calc_metric(name, **common, **extra))
+    g = sampler.module
+    feature_fn = make_lpips_feature_fn(vgg_path, device=device)
+    reset_peak()
+    want.update(calc_metric(
+        "ppl2_wend", g_synthesize=lambda ws, generator=None: g.synthesize(
+            ws, noise_mode="random", generator=generator),
+        map_ws=lambda z, feats=None: g.map_ws(z, None, feats), z_dim=mcfg.z_dim,
+        num_samples=PPL_SAMPLES, batch=CALC_BATCH, feature_fn=feature_fn, device=device,
+        cond_sampler=lambda b: {"feats": torch.as_tensor(
+            ds.sample_conditioning_instance_balance(b)[1], device=device)}))
+    ppl_peak = peak_gib()
+    delta = _rel_delta(got, want)
+    # LPIPS on the card against the CPU: 8 pairs of the G's images.
+    z = torch.randn((16, mcfg.z_dim), generator=torch.Generator(device=device).manual_seed(96),
+                    device=device)
+    pair = sampler(z, None, torch.as_tensor(feats[:16]), device_output=True).permute(0, 3, 1, 2)
+    card = LPIPSEvaluator(vgg_path, device=device).distance(pair[:8], pair[8:]).cpu()
+    cpu = LPIPSEvaluator(vgg_path, device="cpu").distance(pair[:8].cpu(), pair[8:].cpu())
+    lpips_rel = float(((card - cpu).abs() / cpu.abs()).max())
+    records = sorted(os.listdir(flat["run_dir"]))
+    if delta > CLI_REL or got["ppl_distance"] != "lpips" or launches["B4"] == 0 \
+            or launches["B1"] or lpips_rel > 1e-4 \
+            or records != sorted(f"metric-{m}.jsonl" for m in CALC_METRICS):
+        raise AssertionError(f"calc_metrics: max rel |Δ| {delta:.3g} against direct calls, "
+                             f"launches {launches}, LPIPS card/CPU {lpips_rel:.3g}, "
+                             f"records {records}")
+    log_card(f"cli/calc_metrics.py ({mcfg.img_resolution}^2 StyleGAN2 snapshot, h_dim "
+             f"{mcfg.h_dim}; {','.join(CALC_METRICS)} at {CALC_IMAGES} images, batch "
+             f"{CALC_BATCH}, PPL {PPL_SAMPLES} samples with LPIPS from a VGG16 file via "
+             f"$ICGAN_VGG16_WEIGHTS; dataset in memory): {secs:.2f} s end to end with the "
+             f"load; " + ", ".join(f"{k} {v:.4f}" for k, v in got.items()
+                                   if not isinstance(v, str))
+             + f"; max rel |Δ| against direct calc_metric calls {delta:.2e}; PPL peak "
+             f"{ppl_peak:.2f} GiB; LPIPS card vs CPU f32 on 8 pairs: max rel {lpips_rel:.2e}; "
+             f"B4 launches {launches['B4']}")
+    return dict(calc_s=secs, calc_launches=launches["B4"], calc_delta=delta,
+                ppl_peak_gib=ppl_peak, lpips_rel=lpips_rel)
+
+
+def phase_prepare_and_eval_clis(device) -> dict:
+    """Phase 17: data preparation's cores (features, k-NN, k-means, moments)
+    at ImageNet-LT's bank size and both eval CLIs, each held to float64 or to
+    direct calls; B1 counted on ``cli/test.py``'s path, B4 on
+    ``cli/calc_metrics.py``'s."""
+    shutil.rmtree(PREP_DIR, ignore_errors=True)
+    os.makedirs(PREP_DIR)
+    t0 = time.perf_counter()
+    try:
+        out = _prepare_features(device)
+        imgs, feats = out.pop("imgs"), out.pop("feats")
+        feats = feats / np.linalg.norm(feats, axis=1, keepdims=True)
+        torch.cuda.empty_cache()
+        out.update(_knn_and_kmeans(device))
+        torch.cuda.empty_cache()
+        out.update(_moments(device, imgs))
+        out.update(_test_cli(device, imgs, feats))
+        torch.cuda.empty_cache()
+        out.update(_calc_metrics_cli(device, imgs, feats))
+    finally:
+        shutil.rmtree(PREP_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 17 took {out['phase_s']:.1f} s, its checks included")
+    return out
+
+
 def main(argv) -> int:
     global CARD
     card = CARD = phase_env()
@@ -3047,14 +3524,18 @@ def main(argv) -> int:
     deep_launches, deep_per_batch = deep["launches"], deep["launches_per_batch"]
     del deep
     torch.cuda.empty_cache()
+    prep = phase_prepare_and_eval_clis(device)
     b2 = bwd_timings["G"]
     by_path = lambda sampler, train_, sg2_train, sg2_loop_=0, biggan_loop_=0, eval_=0, \
-        deep_sampler=0, deep_train_=0, deep_loop_=0, inference_=0: dict(  # noqa: E731
+        deep_sampler=0, deep_train_=0, deep_loop_=0, inference_=0, test_cli=0, \
+        calc_metrics_cli=0: dict(  # noqa: E731
             sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_,
             biggan_loop=biggan_loop_, eval=eval_, deep_sampler=deep_sampler,
-            deep_train=deep_train_, deep_loop=deep_loop_, inference=inference_)
+            deep_train=deep_train_, deep_loop=deep_loop_, inference=inference_,
+            test_cli=test_cli, calc_metrics_cli=calc_metrics_cli)
     deep_b1 = dict(deep_sampler=deep_launches, deep_train_=deep_train["launches"]["B1"],
-                   deep_loop_=deep_loop["launches"]["B1"], inference_=inference["launches"])
+                   deep_loop_=deep_loop["launches"]["B1"], inference_=inference["launches"],
+                   test_cli=prep["test_launches"])
     deep_b2 = dict(deep_train_=deep_train["launches"]["B2"],
                    deep_loop_=deep_loop["launches"]["B2"])
     deep_shapes = lambda which: dict(  # noqa: E731
@@ -3091,6 +3572,7 @@ def main(argv) -> int:
                                 pth_sampler=inference["pth_launches"],
                                 demo=inference["demo_launches"],
                                 conditioned_sampler=inference["conditioned_launches"]),
+        prepare_and_eval_clis={k: v for k, v in prep.items() if not k.endswith("launches")},
     ), dict(
         name="sagan_attention_bwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_bwd.cu",
@@ -3121,8 +3603,9 @@ def main(argv) -> int:
     ), dict(
         name="bias_act", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
         replaces="ic_gan_tpu/ops/pallas/bias_act.py:103",
-        launches=sg2_run["launches"]["B4"] + loop["launches"]["B4"],
-        launches_by_path=by_path(0, 0, sg2_run["launches"]["B4"], loop["launches"]["B4"]),
+        launches=sg2_run["launches"]["B4"] + loop["launches"]["B4"] + prep["calc_launches"],
+        launches_by_path=by_path(0, 0, sg2_run["launches"]["B4"], loop["launches"]["B4"],
+                                 calc_metrics_cli=prep["calc_launches"]),
         launches_per_step={k: v["B4"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
         launches_per_loop_step=per_loop_step("B4"),
         max_abs_err=sg2_err["B4"], ms=b4["kernel_ms"], plain_ms=b4["plain_ms"],

@@ -56,8 +56,8 @@ SUPERSEDED_KEYS = {
 # (model, train step, trainer, data), ``name_from_config`` (the experiment
 # name's tokens), ``main`` itself and its eval (``eval.pipeline.
 # make_train_eval_fn``).  The JAX package's registry also holds the keys of
-# apps the port does not have yet (the eval and sampling CLIs, ROADMAP.md
-# A.15); here they warn, as every key this CLI would drop.
+# apps the port does not have yet (ROADMAP.md A.15); here they warn, as
+# every key this CLI would drop.
 BIGGAN_KEYS = {
     # model geometry
     "model", "resolution", "n_classes", "G_ch", "D_ch", "dim_z",
@@ -95,7 +95,7 @@ BIGGAN_KEYS = {
 }
 
 # Read by the inference front end (``cli/inference.py``) and its CLIs
-# (``generate_images``, ``sample``, ``demo``).
+# (``generate_images``, ``sample``, ``demo``, ``test``, ``calc_metrics``).
 INFERENCE_KEYS = {
     "backbone", "model_backbone", "pth_dir", "network_pkl", "suffix", "which_model",
     "root_path", "trained_dataset", "deploy_bf16", "truncation_psi", "noise_mode",
@@ -103,6 +103,11 @@ INFERENCE_KEYS = {
     "num_imgs_gen", "index", "swap_target", "visualize_instance_images", "dataset_path",
     "out_path", "out_dir", "num_imgs", "num_samples", "input_image",
     "feature_extractor_weights",
+    # the eval CLIs (cli/test.py, cli/calc_metrics.py)
+    "eval_prdc", "prdc_ref_images", "prdc_nearest_k", "stratified_moments",
+    "samples_per_class_path", "fused_eval", "sample_trunc_curves", "metrics_out",
+    "sample_npz", "sample_num_npz", "npz_path", "metrics", "max_real_images",
+    "ppl_num_samples", "run_dir",
 }
 
 # Supported only at the reference default; anything else warns.

@@ -444,10 +444,6 @@ def get_dataset_hdf5(
     bypass the conventions (the StyleGAN2 JSONs name their hdf5 files
     directly: ``data`` / ``root_feats`` / ``root_nns``, ref train.py:144-167).
     ``dataset_kwargs`` go to ``HDF5Dataset`` (``device`` among them)."""
-    if filter_hd > -1:
-        raise NotImplementedError(
-            "filter_hd needs the COCO-Stuff hamming filter of data/image_datasets.py, "
-            "which is not ported yet (ROADMAP.md A.14)")
     names = hdf5_filenames(
         resolution, which_dataset, longtail, split, test_part,
         feature_extractor, backbone_feature_extractor, k_nn,
@@ -464,6 +460,17 @@ def get_dataset_hdf5(
             data_path,
             kmeans_filename(resolution, which_dataset, feature_extractor,
                             kmeans_subsampled),
+        )
+    if filter_hd > -1:
+        # COCO-Stuff eval-set hamming filter (ref utils.py:640-680; the index
+        # files live under <data>/coco_stuff_val_indexes/).
+        from ic_gan_tpu_torch.data.image_datasets import filter_by_hd
+
+        idx_dir = os.path.join(data_path, "coco_stuff_val_indexes")
+        dataset_kwargs["allowed_idxs"] = filter_by_hd(
+            filter_hd,
+            os.path.join(idx_dir, "cocostuff_val2_all_idxs.npy"),
+            os.path.join(idx_dir, "val2_image_ids_by_hd_75ktraining_im.npy"),
         )
     return HDF5Dataset(
         root=os.path.join(data_path, names["xy"]),

@@ -67,6 +67,23 @@ def full_f32_matmul():
         cuda.fp32_precision, mkldnn.fp32_precision = prev_cuda, prev_mkldnn
 
 
+@contextlib.contextmanager
+def full_f32():
+    """``full_f32_matmul``, and cuDNN's float32 convolutions in full float32
+    too (no TF32) inside the block; the convolutions' own setting back
+    after it.  PPL differences images ε = 1e-4 apart and divides by ε²,
+    where TF32's rounding of the activations would be all it measured (the
+    reference turns TF32 off for its metrics, ``calc_metrics.py``)."""
+    conv = torch.backends.cudnn.conv
+    prev = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        with full_f32_matmul():
+            yield
+    finally:
+        conv.fp32_precision = prev
+
+
 class FeatureMoments:
     """Streaming mean/covariance accumulator in float64 on the host (the
     reference's ``np.mean``/``np.cov``, ``inception_utils.py:289-341``)."""

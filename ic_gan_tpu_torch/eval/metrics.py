@@ -9,10 +9,9 @@ goes through ``eval.pipeline.InceptionEvaluator``.
 
 PPL's distances are a pure function of the endpoints and the interpolation
 point (``ppl_distances``); ``compute_ppl`` draws those from a
-``torch.Generator``.  LPIPS waits for ``models/vgg.py`` (ROADMAP.md A.15), so
-the ``ppl_*`` entries measure LPIPS only when the caller passes a
-``feature_fn``; without one they measure pixel distance, as the JAX package
-does without VGG weights.
+``torch.Generator``.  The ``ppl_*`` entries measure LPIPS when the caller
+passes a ``feature_fn`` (``make_lpips_feature_fn``, ``models/vgg.py``);
+without one they measure pixel distance, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ import numpy as np
 import torch
 
 from ic_gan_tpu_torch import resolve_device
-from ic_gan_tpu_torch.eval.fid import frechet_distance, inception_score
+from ic_gan_tpu_torch.eval.fid import frechet_distance, full_f32, inception_score
 from ic_gan_tpu_torch.eval.prdc import compute_prdc
 
 _METRICS: Dict[str, Callable] = {}
@@ -77,11 +76,16 @@ def kid_from_features(real, fake, num_subsets: int = 100, max_subset_size: int =
 # --- PPL ---------------------------------------------------------------------
 
 
-def make_lpips_feature_fn(weights_path: Optional[str] = None) -> Callable:
-    """LPIPS ``feature_fn`` for PPL: needs the VGG16 port."""
-    raise NotImplementedError(
-        "LPIPS needs models/vgg.py, which is not ported yet (ROADMAP.md A.15); pass a "
-        "feature_fn to compute_ppl")
+def make_lpips_feature_fn(weights_path: Optional[str] = None, device=None) -> Callable:
+    """LPIPS ``feature_fn`` for ``compute_ppl`` / the projector: NCHW images
+    in [-1, 1] → LPIPS feature vectors on ``device`` (CUDA unless named),
+    whose squared L2 difference is the LPIPS distance (the contract of the
+    reference's ``vgg16(..., return_lpips=True)``,
+    ``perceptual_path_length.py:112-116``).  Weights from ``weights_path``
+    or ``$ICGAN_VGG16_WEIGHTS`` (``models/vgg.py``)."""
+    from ic_gan_tpu_torch.models.vgg import LPIPSEvaluator
+
+    return LPIPSEvaluator(weights_path, device=device).features
 
 
 def slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
@@ -123,16 +127,27 @@ def ppl_distances(g_synthesize: Callable, map_ws: Callable, z0, z1, t, epsilon: 
     """Squared feature distances over ε² of the images at t and t + ε on the
     path from z0 to z1 (``PPLSampler.forward``, ``:60-72``): lerp in W for
     ``space="w"``, slerp in Z for ``"z"``.  ``t`` is (b, 1).  Pixel distance
-    without a ``feature_fn``."""
+    without a ``feature_fn``.  A ``generator`` in ``synth_kw`` draws the
+    same noise for both images: its state is restored before the second
+    synthesis, as the reference synthesizes the pair in one batch under one
+    draw of its noise buffers (``:75-78``)."""
     cond, synth_kw = cond or {}, synth_kw or {}
+    gen = synth_kw.get("generator")
+    state = gen.get_state() if gen is not None else None
+
+    def synth(ws, again=False):
+        if again and gen is not None:
+            gen.set_state(state)
+        return g_synthesize(ws, **synth_kw)
+
     if space == "w":
         w0, w1 = map_ws(z0, **cond), map_ws(z1, **cond)
         tw = t[..., None]
-        img0 = g_synthesize(w0 + (w1 - w0) * tw, **synth_kw)
-        img1 = g_synthesize(w0 + (w1 - w0) * (tw + epsilon), **synth_kw)
+        img0 = synth(w0 + (w1 - w0) * tw)
+        img1 = synth(w0 + (w1 - w0) * (tw + epsilon), again=True)
     else:
-        img0 = g_synthesize(map_ws(slerp(z0, z1, t), **cond), **synth_kw)
-        img1 = g_synthesize(map_ws(slerp(z0, z1, t + epsilon), **cond), **synth_kw)
+        img0 = synth(map_ws(slerp(z0, z1, t), **cond))
+        img1 = synth(map_ws(slerp(z0, z1, t + epsilon), **cond), again=True)
     img0, img1 = _ppl_prepare_images(img0, crop), _ppl_prepare_images(img1, crop)
     if feature_fn is not None:
         f0, f1 = feature_fn(img0), feature_fn(img1)
@@ -165,9 +180,11 @@ def compute_ppl(
     (``:56-58``); z0, z1 and t come from a generator seeded ``seed`` on
     ``device`` (default CUDA).  The result is ``ppl_from_distances`` of
     ``ppl_distances``; ``"ppl_distance"`` says whether
-    LPIPS (a ``feature_fn``) or pixels measured it.  ``g_synthesize`` may
+    LPIPS (a ``feature_fn``) or pixels measured it.  Matmuls and
+    convolutions run in full float32 (``eval.fid.full_f32``).  ``g_synthesize`` may
     take ``generator=``; it then gets the draws' generator, to redraw its
-    noise each batch as the reference redraws ``noise_const`` (``:75-78``).
+    noise each batch as the reference redraws ``noise_const`` (``:75-78``),
+    the same noise for both images of a pair.
     """
     if space not in ("z", "w") or sampling not in ("full", "end"):
         raise ValueError(f"space {space!r}, sampling {sampling!r}")
@@ -180,8 +197,9 @@ def compute_ppl(
     global _warned_pixel_ppl
     if feature_fn is None and not _warned_pixel_ppl:
         warnings.warn(
-            "PPL without LPIPS (models/vgg.py, ROADMAP.md A.15): pixel-space distance, "
-            "self-consistent but not a perceptual path length in the reference's sense.",
+            "PPL without LPIPS (no feature_fn, see make_lpips_feature_fn): pixel-space "
+            "distance, self-consistent but not a perceptual path length in the reference's "
+            "sense.",
             stacklevel=2)
         _warned_pixel_ppl = True
 
@@ -197,7 +215,7 @@ def compute_ppl(
             t = torch.rand((b, 1), generator=gen, device=device)
         else:
             t = torch.zeros((b, 1), device=device)
-        with torch.inference_mode():
+        with torch.inference_mode(), full_f32():
             d = ppl_distances(g_synthesize, map_ws, z0, z1, t, epsilon, space, crop,
                               feature_fn, cond, {"generator": gen} if synth_takes_gen else {})
         dists.append(d.double().cpu().numpy())

@@ -361,3 +361,24 @@ def resnet_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             key, value = f"{prefix}.{_RESNET_BN[leaf]}", _ident(value)
         out[key] = torch.from_numpy(value)
     return out
+
+
+# The inverse of ``ic_gan_tpu/models/vgg.py:load_torchvision_vgg16``: Flax
+# ``features_{i}`` (HWIO ``kernel``, ``bias``) and the five ``lin_{i}``
+# channel weights → torchvision's ``features.{i}.weight`` (OIHW) and
+# ``.bias``, and the port's ``lin_{i}``.
+
+
+def vgg_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``VGG16`` state dict (CPU tensors) from the JAX VGG16
+    variables (``{"params": ...}``)."""
+    out = {}
+    for path, value in _flatten(variables["params"]).items():
+        if path[0].startswith("features_"):
+            idx, leaf = path[0][len("features_"):], path[1]
+            key = f"features.{idx}.{'weight' if leaf == 'kernel' else leaf}"
+            value = _t_conv(value) if leaf == "kernel" else _ident(value)
+        else:
+            key, value = path[0], _ident(value)
+        out[key] = torch.from_numpy(np.asarray(value, np.float32))
+    return out

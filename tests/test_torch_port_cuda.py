@@ -864,3 +864,115 @@ def test_fused_eval_loop_launches_b1_a_batch_and_matches_cpu():
     assert launched == 3
     for k in ("FID", "IS_mean"):
         assert abs(out["cuda"][k] - out["cpu"][k]) <= 1e-3 * abs(out["cpu"][k]), (k, out)
+
+
+# --- data preparation and LPIPS --------------------------------------------------------
+
+def _unit_bank(n, dim, clusters, seed):
+    gen = torch.Generator().manual_seed(seed)
+    centres = torch.randn((clusters, dim), generator=gen)
+    x = centres[torch.randint(0, clusters, (n,), generator=gen)] + 0.5 * torch.randn(
+        (n, dim), generator=gen)
+    return torch.nn.functional.normalize(x, dim=1).numpy()
+
+
+def _near_tie(d_sorted, i, tol=1e-4):
+    """Whether entry ``i`` of an ascending row lies within ``tol`` of a
+    neighbour."""
+    lo = i > 0 and d_sorted[i] - d_sorted[i - 1] <= tol
+    hi = i + 1 < len(d_sorted) and d_sorted[i + 1] - d_sorted[i] <= tol
+    return lo or hi
+
+
+def test_feature_bank_on_the_card_with_tf32_on():
+    """``knn``, ``kmeans`` and ``closest_real_to_centroids`` on the card with
+    the caller's TF32 on: the products run in full f32 all the same (the
+    setting is back afterwards).  k-NN: each query's distances to its
+    neighbours within 1e-4 of the float64 sorted ones, the indices equal
+    away from near-ties, the radii; k-means: each row's assignment its
+    float64 argmin over the final centroids (away from near-ties), each
+    centroid the mean of its rows within 1e-5, and the chosen real rows the
+    float64 nearest."""
+    import numpy as np
+
+    from ic_gan_tpu_torch.data.feature_bank import closest_real_to_centroids, kmeans, knn
+
+    bank = _unit_bank(6000, 256, 40, 0)
+    b64 = bank.astype(np.float64)
+    cuda = torch.backends.cuda.matmul
+    prev = cuda.fp32_precision
+    cuda.fp32_precision = "tf32"
+    try:
+        idx, radii = knn(bank, k=11, device="cuda")
+        centroids, assign = kmeans(bank, num_clusters=16, num_iters=20, seed=1, device="cuda")
+        centres = closest_real_to_centroids(bank, centroids, device="cuda")
+        assert cuda.fp32_precision == "tf32"
+    finally:
+        cuda.fp32_precision = prev
+    for q in range(0, 6000, 47):
+        d = ((b64 - b64[q]) ** 2).sum(1)
+        order = np.sort(d)[:12]              # one more, for a tie at the 11th
+        assert np.abs(d[idx[q]] - order[:11]).max() <= 1e-4
+        want = np.argsort(d, kind="stable")[:11]
+        for i in range(11):
+            assert idx[q, i] == want[i] or _near_tie(order, i)
+        assert abs(radii[q] - np.sqrt(order[10])) <= 1e-4
+    c64 = centroids.astype(np.float64)
+    dc = ((b64[:, None, :] - c64[None]) ** 2).sum(-1)
+    best = dc.argmin(1)
+    top2 = np.sort(dc, axis=1)[:, :2]
+    ok = (assign == best) | (top2[:, 1] - top2[:, 0] <= 1e-4)
+    assert ok.all()
+    for k in range(16):
+        members = b64[assign == k]
+        if len(members):
+            assert np.abs(members.mean(0) - c64[k]).max() <= 1e-5
+    near = ((c64[:, None, :] - b64[None]) ** 2).sum(-1)
+    assert all(centres[k] == near[k].argmin() or np.sort(near[k])[1] - near[k].min() <= 1e-4
+               for k in range(16))
+
+
+def test_extract_features_card_matches_cpu():
+    """``iter_features`` (ResNet-50 from a seed, 224² bicubic, the flip bank)
+    on the card within 1e-4 of the largest entry of the CPU's, f32."""
+    import numpy as np
+
+    from ic_gan_tpu_torch.cli.prepare_data import iter_features
+    from ic_gan_tpu_torch.models.resnet import ResNet50
+
+    imgs = np.random.RandomState(2).randint(0, 256, (6, 3, 64, 64), np.uint8)
+    net = ResNet50(device="cpu", generator=torch.Generator().manual_seed(3))
+    out = {}
+    for device in ("cpu", "cuda"):
+        rows = list(iter_features(imgs, copy.deepcopy(net).to(device), batch=4))
+        out[device] = [np.concatenate([r[j] for r in rows]) for j in (2, 3)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.shape == want.shape == (6, 2048)
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_lpips_card_matches_cpu_with_tf32_on():
+    """``LPIPSEvaluator`` (VGG16 from a seed) on 8 pairs at 64²: the card's
+    distances within 1e-4 relative of the CPU's f32 ones and equal to the
+    squared feature differences, with the caller's TF32 on for
+    convolutions (the evaluator runs in full f32; the setting is back
+    afterwards)."""
+    from ic_gan_tpu_torch.models.vgg import LPIPSEvaluator
+
+    gen = torch.Generator().manual_seed(4)
+    a = torch.tanh(torch.randn((8, 3, 64, 64), generator=gen))
+    b = (a + 0.2 * torch.randn((8, 3, 64, 64), generator=gen)).clamp(-1, 1)
+    conv = torch.backends.cudnn.conv
+    prev = conv.fp32_precision
+    conv.fp32_precision = "tf32"
+    try:
+        card = LPIPSEvaluator(device="cuda")
+        got = card.distance(a.cuda(), b.cuda()).cpu()
+        feats = card.features(torch.cat([a, b]).cuda()).cpu()
+        assert conv.fp32_precision == "tf32"
+    finally:
+        conv.fp32_precision = prev
+    want = LPIPSEvaluator(device="cpu").distance(a, b)
+    assert ((got - want).abs() <= 1e-4 * want.abs()).all(), (got, want)
+    via_feats = (feats[:8] - feats[8:]).square().sum(1)
+    assert ((via_feats - want).abs() <= 1e-4 * want.abs()).all()

@@ -248,8 +248,13 @@ def test_registry_and_lpips():
     assert tmetrics.list_metrics() == jmetrics.list_metrics()
     assert all(tmetrics._METRICS[k].max_real == jmetrics._METRICS[k].max_real
                for k in jmetrics.list_metrics())
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tmetrics.make_lpips_feature_fn()
+    # LPIPS (models/vgg.py) with random weights from a seed: feature
+    # vectors whose squared difference is the distance.
+    feature_fn = tmetrics.make_lpips_feature_fn(device="cpu")
+    x = torch.from_numpy(np.random.RandomState(12).uniform(-1, 1, (2, 3, 32, 32))
+                         .astype(np.float32))
+    f = feature_fn(x)
+    assert f.shape[0] == 2 and torch.isfinite(f).all() and float((f[0] - f[1]).square().sum()) > 0
     with pytest.raises(ValueError, match="unknown metric"):
         tmetrics.calc_metric("fid1k")
 

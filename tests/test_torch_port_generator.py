@@ -323,7 +323,8 @@ def test_port_imports_no_jax():
     # StyleGAN2 loop's (utils/, cli/, the dataset, checkpoints, the importer),
     # the BigGAN loop's (DiffAugment, distributions, the .pth loaders, the
     # trainer and its CLI), the eval stack's (Inception, eval/) and the
-    # inference slice's (BigGAN-deep, ResNet-50, the sampling CLIs) included.
+    # inference slice's (BigGAN-deep, ResNet-50, the sampling CLIs) and the
+    # data-preparation and eval-CLI slice's (readers, COCO tools, VGG16) included.
     rel = {os.path.relpath(f, os.path.join(ROOT, "ic_gan_tpu_torch")) for f in files}
     assert {"data/ada.py", "data/fast_warp.py", "ops/row_shift.py", "ops/bias_act.py",
             "ops/conv_resample.py", "models/stylegan2.py", "train/stylegan2_step.py",
@@ -335,7 +336,9 @@ def test_port_imports_no_jax():
             "cli/inference.py", "models/inception.py", "eval/__init__.py", "eval/fid.py",
             "eval/prdc.py", "eval/pipeline.py", "eval/metrics.py", "models/biggan_deep.py",
             "models/resnet.py", "cli/generate_images.py", "cli/sample.py", "cli/demo.py",
-            "data/image_datasets.py"} <= rel
+            "data/image_datasets.py", "io/lmdb_reader.py", "data/archive_readers.py",
+            "cli/prepare_data.py", "cli/store_coco_images.py", "models/vgg.py",
+            "io/convert.py", "cli/test.py", "cli/calc_metrics.py"} <= rel
     bad = {(os.path.relpath(f, ROOT), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad

@@ -102,13 +102,17 @@ def test_in_process_knn_matches_jax(files):
 
 
 def test_get_dataset_hdf5_matches_jax_and_refuses_filter_hd(files):
+    """The factory as JAX's; ``filter_hd`` without the hamming index files
+    refuses as JAX's does (the filter itself:
+    ``test_torch_port_prepare_data.py``)."""
     root, names = files
     kw = dict(resolution=RES, data_path=str(root), k_nn=K, feature_extractor="classification",
               feature_dim=F, seed=2, label_dim=5, label_onehot=True)
     jd, td = jdata.get_dataset_hdf5(**kw), tdata.get_dataset_hdf5(**kw)
     np.testing.assert_array_equal(td.sample_batch(4).labels, jd.sample_batch(4).labels)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tdata.get_dataset_hdf5(filter_hd=1, **kw)
+    for mod in (tdata, jdata):
+        with pytest.raises(FileNotFoundError, match="cocostuff_val2_all_idxs"):
+            mod.get_dataset_hdf5(filter_hd=1, **kw)
     assert tdata.kmeans_filename(RES, "coco", k=100) == jdata.kmeans_filename(RES, "coco", k=100)
 
 
