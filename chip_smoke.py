@@ -107,12 +107,29 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    and PPL with LPIPS) over those images in memory (the card's machine has
    no ``h5py``), each against direct calls on the same draws, with
    img/s, seconds and peak memory; B1 counted on the first CLI's path, B4
-   on the second's.
+   on the second's;
+18. int8 serving and the exported sampler: phase 5's IC-GAN G and phase
+   15's deep G as upstream ``.pth`` bundles and phase 12's StyleGAN2 model
+   as a network snapshot, each through ``load_model_inference`` with and
+   without ``quantize_serving`` (64 calibration images, features from a
+   stored-features file; StyleGAN2 static per-channel and with
+   ``quantize_dynamic``): img/s of the int8 and the float sampler in turns,
+   the drift of the int8 images, peak memory, the calibration's seconds, B1
+   or B4 launches, agreement with direct calls, and the IC-GAN G once with
+   ``skip_attention=False``; each distinct int8 conv of that G, a StyleGAN2
+   composite up=2 conv and the fused 1×1 attention conv through the int8
+   route (im2col and ``torch._int_mm``) against its plain version bit for
+   bit, timed against the bf16 cuDNN conv; then the bf16 and int8 IC-GAN G,
+   the deep G and the int8 StyleGAN2 G exported (``export_sampler``) and
+   loaded back: MiB, seconds, img/s and max|Δ| against the live sampler, and
+   the kernels launched inside the loaded program.
 
 ``--profile`` adds device-time breakdowns of one sampler batch, one BigGAN
 train step, one StyleGAN2 main and reg step, one eval batch (G and
 Inception, and Inception alone, in each mode), one BigGAN-deep sampler
-batch and one BigGAN-deep train step, with the kernels launched
+batch and one BigGAN-deep train step, one bf16 and one int8 IC-GAN sampler
+batch, one float and one int8 StyleGAN2 sampler batch and one batch of the
+loaded int8 StyleGAN2 program, with the kernels launched
 inside ``BiasAct.backward`` (its ``bias_act_bwd`` range) summed apart.  The
 last three lines of standard output are the card (name, power limit), one
 JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
@@ -898,7 +915,7 @@ def phase_main_path(device) -> dict:
         f"{', '.join(f'{1e3 * t:.2f}' for t in times)}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dict(g=g, weights=weights, sampler=sampler, launches=launches,
-                requests=requests)
+                requests=requests, img_per_s=SAMPLER_BATCH / med)
 
 
 def phase_profile(label, fn):
@@ -3335,7 +3352,7 @@ def _test_cli(device, imgs, feats) -> dict:
     return dict(test_s=secs, test_launches=launches["B1"], test_delta=delta)
 
 
-def _sg2_snapshot(device) -> str:
+def _sg2_snapshot(device, directory=None) -> str:
     """Phase 12's StyleGAN2 model (256², ``h_dim`` 2048) from a seed, layer
     noise on, as a torch network snapshot (a dict of modules carrying their
     ``init_kwargs``, which ``load_network_pkl`` reads)."""
@@ -3354,7 +3371,7 @@ def _sg2_snapshot(device) -> str:
         synthesis_kwargs=dict(channel_base=cfg.channel_base, channel_max=cfg.channel_max,
                               num_fp16_res=cfg.num_fp16_res, conv_clamp=cfg.conv_clamp,
                               architecture=cfg.architecture_g))
-    path = os.path.join(PREP_DIR, "sg2-snapshot.pkl")
+    path = os.path.join(directory or PREP_DIR, "sg2-snapshot.pkl")
     with open(path, "wb") as f:
         pickle.dump({"G_ema": g}, f)
     return path
@@ -3481,6 +3498,379 @@ def phase_prepare_and_eval_clis(device) -> dict:
     return out
 
 
+# --- int8 serving and the exported sampler (phase 18) ---------------------------------------
+# Phase 5's cell (the 256² ch96 IC-GAN G, attention at 64², σ folded, batch
+# 128), phase 15's BigGAN-deep G and phase 12's StyleGAN2 model, each handed
+# over as a user would (an upstream .pth bundle, a network snapshot) and
+# loaded by load_model_inference with and without quantize_serving: 64
+# calibration images drawn as the JAX CLI draws them, the features from a
+# stored-features file.  Bars: int8 images against the float ones below the
+# JAX tests' bars (mean relative 0.1 for BigGAN, 0.15 for StyleGAN2's CLI);
+# an exported program's images against its live sampler's within 1e-5, its
+# launches equal to the live sampler's.
+Q_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_int8")
+Q_STORED = 1000                    # rows of the stored-features file
+Q_SG2_BATCH = 32                   # load_model_inference's default batch
+Q_DRIFT_BAR = {"biggan": 0.1, "stylegan2": 0.15}
+EXPORT_ATOL = 1e-5
+
+
+def _drift(got, want) -> float:
+    """mean|Δ| / mean|float|, the int8 images against the float ones."""
+    return ((got.float() - want.float()).abs().mean() / want.float().abs().mean()).item()
+
+
+def _alternating_ips(samplers: dict, args, batch: int, rounds: int = 3) -> dict:
+    """img/s of each sampler (name → fn), median of ``2·rounds`` passes taken
+    in turns (a, b, b, a, ...) after one warm-up each, so that the card's
+    state drifts alike for all; each pass ends in a synchronize."""
+    times = {k: [] for k in samplers}
+    for fn in samplers.values():
+        fn(*args, device_output=True)
+    sync()
+    names = list(samplers)
+    for _ in range(rounds):
+        for name in names + names[::-1]:
+            t0 = time.perf_counter()
+            samplers[name](*args, device_output=True)
+            sync()
+            times[name].append(time.perf_counter() - t0)
+    return {k: batch / statistics.median(v) for k, v in times.items()}
+
+
+def _launches(fn, *args) -> dict:
+    """``counts()`` over exactly one call of ``fn(*args, device_output=True)``."""
+    reset_counts()
+    out = fn(*args, device_output=True)
+    sync()
+    return out, counts()
+
+
+def _pth_bundle(directory, state_dict, flat):
+    """An upstream .pth bundle: G_ema.pth (upstream names, so no standing
+    counters) and its config in state_dict.pth."""
+    os.makedirs(directory)
+    torch.save({k: v.cpu() for k, v in state_dict.items() if not k.endswith("accum_counter")},
+               os.path.join(directory, "G_ema.pth"))
+    torch.save({"config": flat}, os.path.join(directory, "state_dict.pth"))
+    return directory
+
+
+def _int8_conv_cases(g) -> list:
+    """Each distinct int8 conv of a quantized BigGAN G, from one batch-1
+    forward: (label, input shape (C, H, W), int8 kernel, padding, the bf16
+    kernel of the float layer, up2x)."""
+    from ic_gan_tpu_torch.models.layers import SNConv
+
+    seen = {}
+
+    def hook(name, m):
+        def record(_, args):
+            if name not in seen:
+                seen[name] = (tuple(args[0].shape[1:]), m)
+        return record
+
+    handles = [m.register_forward_pre_hook(hook(n, m)) for n, m in g.named_modules()
+               if (isinstance(m, SNConv) and m.quantized) or isinstance(m, SelfAttention)]
+    z = torch.zeros((1, g.cfg.effective_dim_z), device=g.output_layer[2].weight.device)
+    with torch.inference_mode():
+        g(z, None, torch.zeros((1, g.cfg.instance_sz), device=z.device))
+    for h in handles:
+        h.remove()
+    cases, keys = [], set()
+    for name, (shape, m) in seen.items():
+        if isinstance(m, SelfAttention):
+            convs = (m.theta, m.phi, m.g)
+            if not m.theta.quantized:
+                continue
+            case = (f"{name}.theta|phi|g (fused 1x1)", shape, torch.cat([c.qkernel for c in convs]),
+                    0, torch.cat([c.weight for c in convs]), False)
+        else:
+            case = (name, shape, m.qkernel, m.padding, m.weight, m.up2x)
+        key = (shape, tuple(case[2].shape))
+        if key not in keys:
+            keys.add(key)
+            cases.append(case)
+    return cases
+
+
+def _conv_route_case(label, shape, qk, padding, w, up2x, batch, device, gen) -> dict:
+    """The int8 route (im2col and ``torch._int_mm``) against its plain
+    version (float64, exact) on the card, bit for bit, each phase of an
+    up2x conv with its own padding; its time against the bf16 cuDNN conv of
+    the same shape (the float layer's: an up2x conv as its four phase
+    convs)."""
+    from ic_gan_tpu_torch.ops.int8_conv import conv2d_int8, conv2d_int8_ref
+    from ic_gan_tpu_torch.ops.resample import _PHASE_OFFSETS, conv3x3_nearest_up
+
+    xq = torch.randint(-127, 128, (batch,) + shape, generator=gen, device=device,
+                       dtype=torch.int8)
+    xb, wb = xq.to(torch.bfloat16), w.to(torch.bfloat16)
+    if up2x:
+        parts = [(qk[i], (1 - di, di, 1 - dj, dj)) for i, (di, dj) in enumerate(_PHASE_OFFSETS)]
+        bf16 = lambda: conv3x3_nearest_up(xb, wb)  # noqa: E731
+    else:
+        parts = [(qk, padding)]
+        bf16 = lambda: F.conv2d(xb, wb, padding=padding)  # noqa: E731
+    exact = True
+    for k, pad in parts:
+        got, want = conv2d_int8(xq, k, pad), conv2d_int8_ref(xq, k, pad)
+        exact &= bool(torch.equal(got, want)) and got.dtype == torch.int32
+        del got, want
+    route = lambda: [conv2d_int8(xq, k, pad) for k, pad in parts]  # noqa: E731
+    ms, bf16_ms = cuda_ms(route, reps=3, warmup=1), cuda_ms(bf16, reps=3, warmup=1)
+    n_out = batch * qk.shape[-4] * math.prod(shape[1:]) * (4 if up2x else 1)
+    ops = 2 * n_out * math.prod(qk.shape[-3:])
+    out = dict(label=label, input=[batch, *shape], qkernel=list(qk.shape), exact=exact,
+               int8_ms=ms, bf16_cudnn_ms=bf16_ms, int8_tops=ops / ms / 1e9,
+               bf16_tflops=ops / bf16_ms / 1e9)
+    log_card(f"int8 conv {label}: input {out['input']}, kernel {out['qkernel']}: int32 sums "
+             f"{'equal to the plain version bit for bit' if exact else 'DIFFER'}; "
+             f"im2col + _int_mm {ms:.3f} ms ({out['int8_tops']:.1f} TOP/s) against the bf16 "
+             f"cuDNN conv {bf16_ms:.3f} ms ({out['bf16_tflops']:.1f} TFLOP/s)")
+    if not exact:
+        raise AssertionError(f"int8 conv {label}: the card's route differs from the plain version")
+    return out
+
+
+def _export_case(label, sampler, args, kernel, device, profile=False) -> dict:
+    """``export_sampler`` of a live sampler's module, loaded back: the
+    artifact's MiB, export and load seconds, the loaded program's images
+    against the live sampler's, its ``kernel`` launches a batch (which must
+    be the live sampler's, and not 0), and both samplers' img/s in turns."""
+    from ic_gan_tpu_torch.io.deploy import export_sampler, load_exported_sampler
+
+    sync()
+    t0 = time.perf_counter()
+    data = export_sampler(sampler.module, sampler.batch_size, device=device,
+                          **sampler.apply_kwargs)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_exported_sampler(data)
+    sync()
+    load_s = time.perf_counter() - t0
+    ops = sorted({str(n.target) for n in loaded.program.graph.nodes
+                  if "ic_gan_tpu" in str(n.target)})
+    got, launched = _launches(loaded, *args)
+    want, live = _launches(sampler, *args)
+    max_d = (got - want).abs().max().item()
+    ips = _alternating_ips({"live": sampler, "loaded": loaded}, args, sampler.batch_size, 2)
+    if profile:
+        phase_profile(f"one batch of the loaded {label} program",
+                      lambda: loaded(*args, device_output=True))
+    out = dict(label=label, mib=len(data) / 2 ** 20, export_s=export_s, load_s=load_s,
+               ops=ops, launches=launched[kernel], live_launches=live[kernel],
+               max_abs_delta=max_d, img_per_s=ips["loaded"], live_img_per_s=ips["live"])
+    log_card(f"exported {label}: {out['mib']:.1f} MiB, export {export_s:.2f} s, load "
+             f"{load_s:.2f} s; ops in the program {ops}; {kernel} launches a batch "
+             f"{launched[kernel]} (live {live[kernel]}); max|Δ| against the live sampler "
+             f"{max_d:.3g}; {ips['loaded']:.2f} img/s against the live {ips['live']:.2f}")
+    if launched[kernel] == 0 or launched != live or max_d > EXPORT_ATOL \
+            or got.shape != want.shape:
+        raise AssertionError(f"exported {label}: launches {launched} against {live}, "
+                             f"max|Δ| {max_d}")
+    del loaded, data
+    return out
+
+
+def _int8_biggan(device, flat, bank, cfg_kind, main_ips=None, profile=False) -> dict:
+    """One BigGAN backbone (``cfg_kind`` "biggan" or "deep") through
+    load_model_inference, bf16 and int8 (deploy_bf16); the first also with
+    ``skip_attention=False`` and the conv shapes; both exported.  With
+    ``profile``, device-time breakdowns of one bf16 and one int8 batch."""
+    from ic_gan_tpu_torch.cli import inference as inf
+    from ic_gan_tpu_torch.io import quant
+    from ic_gan_tpu_torch.io.deploy import set_compute_dtype
+
+    flat = dict(flat, deploy_bf16=True, batch_size=SAMPLER_BATCH, stored_features=bank)
+    inf.load_generator(flat, device=device)        # a first read of the bundle, untimed
+    sync()
+    t0 = time.perf_counter()
+    f16, mcfg = inf.load_model_inference(flat, device=device)
+    sync()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q8, _ = inf.load_model_inference(dict(flat, quantize_serving=True), device=device)
+    sync()
+    q_load_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(100)
+    z = torch.randn((SAMPLER_BATCH, mcfg.effective_dim_z), generator=gen, device=device)
+    label = (torch.randint(0, mcfg.n_classes, (SAMPLER_BATCH,), generator=gen, device=device)
+             if mcfg.class_cond else None)
+    # Conditioning from the stored instances, as a user samples (the int8
+    # ranges were calibrated on them).
+    rows = torch.randint(0, Q_STORED, (SAMPLER_BATCH,), generator=gen, device=device)
+    feats = torch.as_tensor(np.load(bank), device=device)[rows] if mcfg.instance_cond else None
+    args = (z, label, feats)
+    ref, ref_launches = _launches(f16, *args)
+    reset_peak()
+    img, launches = _launches(q8, *args)
+    peak = peak_gib()
+    with torch.inference_mode():
+        direct = q8.module(z, label, feats).permute(0, 2, 3, 1)
+    n_q = sum(k.endswith(".qkernel") for k in q8.module.state_dict())
+    drift = _drift(img, ref)
+    ips = _alternating_ips({"bf16": f16, "int8": q8}, args, SAMPLER_BATCH)
+    out = dict(load_s=load_s, int8_load_s=q_load_s, calibration_s=q_load_s - load_s,
+               int8_convs=n_q, drift=drift, peak_gib=peak, launches=launches["B1"],
+               bf16_launches=ref_launches["B1"], img_per_s=ips["int8"],
+               bf16_img_per_s=ips["bf16"], direct_equal=bool(torch.equal(img, direct)))
+    ok = (img.shape == ref.shape and bool(torch.isfinite(img).all()) and out["direct_equal"]
+          and launches == dict(B1=1, B2=0, B3=0, B4=0, B4bwd=0) and 0 < drift < Q_DRIFT_BAR[
+              "biggan"] and n_q > 0)
+    log_card(f"int8 {cfg_kind} sampler (load_model_inference, quantize_serving, deploy_bf16, "
+             f"batch {SAMPLER_BATCH}, 64 calibration images): {n_q} int8 convs; load "
+             f"{q_load_s:.2f} s against {load_s:.2f} s without int8 (calibration and "
+             f"quantization {q_load_s - load_s:.2f} s); {ips['int8']:.2f} img/s against bf16 "
+             f"{ips['bf16']:.2f} img/s in turns" + (f" (phase 5's bf16 {main_ips:.2f})" if
+                                                    main_ips else "")
+             + f"; drift mean|Δ|/mean|bf16| {drift:.5f}; peak memory {peak:.2f} GiB; "
+             f"launches {launches}; direct call "
+             f"{'bit for bit' if out['direct_equal'] else 'DIFFERS'}")
+    if not ok:
+        raise AssertionError(f"int8 {cfg_kind} sampler: {out}")
+    if profile:
+        for name, fn in (("bf16", f16), ("int8", q8)):
+            phase_profile(f"one {name} {cfg_kind} sampler batch of {SAMPLER_BATCH}",
+                          lambda fn=fn: fn(*args, device_output=True))
+    exports = [_export_case(f"{cfg_kind} bf16 G", f16, args, "B1", device)]
+    if cfg_kind == "biggan":
+        exports.append(_export_case(f"{cfg_kind} int8 G", q8, args, "B1", device))
+        # skip_attention=False once: the attention's θ/φ/g (fused) and o in
+        # int8 too, calibrated on the same draws as load_model_inference's.
+        del f16
+        torch.cuda.empty_cache()
+        g, _ = inf.load_generator(flat, device=device)
+        fold_spectral_norm(g)
+        rng = np.random.RandomState(0)
+        zc = torch.as_tensor(rng.randn(64, mcfg.effective_dim_z), dtype=torch.float32,
+                             device=device)
+        bank_rows = np.load(bank)
+        fc = torch.as_tensor(bank_rows[rng.randint(0, len(bank_rows), 64)], device=device)
+        sync()
+        t0 = time.perf_counter()
+        quant.quantize_variables(g, zc, None, fc, skip_attention=False)
+        sync()
+        cal_s = time.perf_counter() - t0
+        cast_params(set_compute_dtype(g, torch.bfloat16), torch.bfloat16)
+        full = make_sampler(g, batch_size=SAMPLER_BATCH, device=device)
+        img_full, launches_full = _launches(full, *args)
+        drift_full = _drift(img_full, ref)
+        ips_full = _alternating_ips({"int8": q8, "int8 attention too": full}, args,
+                                    SAMPLER_BATCH)
+        out["skip_attention_false"] = dict(calibration_s=cal_s, drift=drift_full,
+                                           launches=launches_full["B1"],
+                                           img_per_s=ips_full["int8 attention too"],
+                                           default_img_per_s=ips_full["int8"])
+        log_card(f"int8 biggan sampler with skip_attention=False (quantize_variables, "
+                 f"calibration {cal_s:.2f} s): {ips_full['int8 attention too']:.2f} img/s "
+                 f"against the default int8's {ips_full['int8']:.2f} in turns; drift "
+                 f"{drift_full:.5f}; launches {launches_full}")
+        if not (0 < drift_full < Q_DRIFT_BAR["biggan"]) or launches_full["B1"] != 1:
+            raise AssertionError(f"int8 attention: drift {drift_full}, {launches_full}")
+        out["convs"] = [_conv_route_case(*case, SAMPLER_BATCH, device, gen)
+                        for case in _int8_conv_cases(g)]
+        del g, full
+    out["exports"] = exports
+    del q8, ref, img, direct
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_stylegan2(device, bank, profile=False) -> dict:
+    """Phase 12's StyleGAN2 model as a network snapshot through
+    load_model_inference: float, int8 static per-channel and int8 with
+    ``quantize_dynamic``; B4 counted; the static one exported; one composite
+    up=2 conv through the int8 route.  With ``profile``, device-time
+    breakdowns of one float and one int8 batch, and of one batch of the
+    loaded int8 program."""
+    from ic_gan_tpu_torch.cli import inference as inf
+
+    base = dict(backbone="stylegan2", network_pkl=_sg2_snapshot(device, Q_DIR),
+                batch_size=Q_SG2_BATCH, stored_features=bank)
+    samplers = {}
+    load_s = {}
+    for name, kw in (("float", {}), ("int8", dict(quantize_serving=True)),
+                     ("int8 dynamic", dict(quantize_serving=True, quantize_dynamic=True))):
+        sync()
+        t0 = time.perf_counter()
+        samplers[name] = inf.load_model_inference(dict(base, **kw), device=device)[0]
+        sync()
+        load_s[name] = time.perf_counter() - t0
+    cfg = samplers["float"].model_cfg
+    gen = torch.Generator(device=device).manual_seed(101)
+    rows = torch.randint(0, Q_STORED, (Q_SG2_BATCH,), generator=gen, device=device)
+    args = (torch.randn((Q_SG2_BATCH, cfg.z_dim), generator=gen, device=device), None,
+            torch.as_tensor(np.load(bank), device=device)[rows])
+    ref, ref_launches = _launches(samplers["float"], *args)
+    out = dict(load_s=load_s)
+    for name in ("int8", "int8 dynamic"):
+        reset_peak()
+        img, launches = _launches(samplers[name], *args)
+        drift = _drift(img, ref)
+        out[name] = dict(drift=drift, launches=launches["B4"], peak_gib=peak_gib())
+        if not bool(torch.isfinite(img).all()) or not 0 < drift < Q_DRIFT_BAR["stylegan2"] \
+                or launches != ref_launches or launches["B4"] == 0:
+            raise AssertionError(f"int8 stylegan2 ({name}): drift {drift}, launches "
+                                 f"{launches} against {ref_launches}")
+    ips = _alternating_ips(samplers, args, Q_SG2_BATCH)
+    for name in ("int8", "int8 dynamic"):
+        out[name]["img_per_s"] = ips[name]
+    out.update(float_img_per_s=ips["float"], float_launches=ref_launches["B4"])
+    log_card(f"int8 stylegan2 sampler ({cfg.img_resolution}^2, h_dim {cfg.h_dim}, "
+             f"load_model_inference at batch {Q_SG2_BATCH}, noise const): float (bf16 from "
+             f"32^2 as configured) {ips['float']:.2f} img/s; int8 static per-channel "
+             f"{ips['int8']:.2f} img/s, drift {out['int8']['drift']:.5f}; int8 dynamic "
+             f"{ips['int8 dynamic']:.2f} img/s, drift {out['int8 dynamic']['drift']:.5f}; B4 "
+             f"launches a batch {ref_launches['B4']} in each; loads (calibration included) "
+             + ", ".join(f"{k} {v:.2f} s" for k, v in load_s.items()))
+    res = cfg.img_resolution
+    layer = getattr(samplers["int8"].module.synthesis, f"b{res}").conv0
+    out["composite_conv"] = _conv_route_case(
+        f"synthesis.b{res}.conv0 (StyleGAN2 composite up=2)",
+        (layer.weight.shape[1], res // 2, res // 2), layer.qkernel, 1, layer.qkernel, False,
+        Q_SG2_BATCH, device, gen)
+    if profile:
+        for name in ("float", "int8"):
+            phase_profile(f"one {name} stylegan2 sampler batch of {Q_SG2_BATCH}",
+                          lambda name=name: samplers[name](*args, device_output=True))
+    out["export"] = _export_case("stylegan2 int8 G", samplers["int8"], args, "B4", device,
+                                 profile)
+    del samplers
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8_and_export(device, main_ips, deep_unfolded, profile=False) -> dict:
+    """Phase 18: int8 serving for the three backbones and their exported
+    samplers, each against its float sampler and its live sampler."""
+    shutil.rmtree(Q_DIR, ignore_errors=True)
+    os.makedirs(Q_DIR)
+    t0 = time.perf_counter()
+    try:
+        bank = os.path.join(Q_DIR, "stored_features.npy")
+        feats = np.random.RandomState(102).randn(Q_STORED, 2048).astype(np.float32)
+        np.save(bank, feats / np.linalg.norm(feats, axis=1, keepdims=True))
+        cfg = BigGANConfig(**MAIN_G)
+        g = Generator(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+        set_gamma(g)
+        flat = dict(INFERENCE_FLAT, pth_dir=_pth_bundle(os.path.join(Q_DIR, "biggan"),
+                                                        g.state_dict(), INFERENCE_FLAT))
+        del g
+        out = dict(biggan=_int8_biggan(device, flat, bank, "biggan", main_ips, profile))
+        deep_flat = dict(model="BigGANdeep", **DEEP_MODEL)
+        deep_flat = dict(deep_flat, pth_dir=_pth_bundle(os.path.join(Q_DIR, "deep"),
+                                                        deep_unfolded, deep_flat))
+        out["deep"] = _int8_biggan(device, deep_flat, bank, "deep")
+        out["stylegan2"] = _int8_stylegan2(device, bank, profile)
+    finally:
+        shutil.rmtree(Q_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 18 took {out['phase_s']:.1f} s, its checks included")
+    return out
+
+
 def main(argv) -> int:
     global CARD
     card = CARD = phase_env()
@@ -3522,17 +3912,28 @@ def main(argv) -> int:
     deep_loop = phase_deep_loop(device)
     inference = phase_inference(device, deep)
     deep_launches, deep_per_batch = deep["launches"], deep["launches_per_batch"]
+    deep_unfolded = deep["unfolded"]
     del deep
     torch.cuda.empty_cache()
     prep = phase_prepare_and_eval_clis(device)
+    int8 = phase_int8_and_export(device, main_run["img_per_s"], deep_unfolded,
+                                 "--profile" in argv)
+    del deep_unfolded
+    q_b1 = dict(int8_sampler=sum(int8[k]["launches"] for k in ("biggan", "deep")),
+                exported_sampler=sum(e["launches"] for k in ("biggan", "deep")
+                                     for e in int8[k]["exports"]))
+    q_b4 = dict(int8_sampler=sum(int8["stylegan2"][k]["launches"]
+                                 for k in ("int8", "int8 dynamic")),
+                exported_sampler=int8["stylegan2"]["export"]["launches"])
     b2 = bwd_timings["G"]
     by_path = lambda sampler, train_, sg2_train, sg2_loop_=0, biggan_loop_=0, eval_=0, \
         deep_sampler=0, deep_train_=0, deep_loop_=0, inference_=0, test_cli=0, \
-        calc_metrics_cli=0: dict(  # noqa: E731
+        calc_metrics_cli=0, int8_sampler=0, exported_sampler=0: dict(  # noqa: E731
             sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_,
             biggan_loop=biggan_loop_, eval=eval_, deep_sampler=deep_sampler,
             deep_train=deep_train_, deep_loop=deep_loop_, inference=inference_,
-            test_cli=test_cli, calc_metrics_cli=calc_metrics_cli)
+            test_cli=test_cli, calc_metrics_cli=calc_metrics_cli, int8_sampler=int8_sampler,
+            exported_sampler=exported_sampler)
     deep_b1 = dict(deep_sampler=deep_launches, deep_train_=deep_train["launches"]["B1"],
                    deep_loop_=deep_loop["launches"]["B1"], inference_=inference["launches"],
                    test_cli=prep["test_launches"])
@@ -3556,9 +3957,9 @@ def main(argv) -> int:
         source="ic_gan_tpu_torch/csrc/sagan_attention_fwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:56",
         launches=main_run["launches"] + train["fwd"] + bg["launches"]["B1"] + eval_b1
-        + sum(deep_b1.values()),
+        + sum(deep_b1.values()) + sum(q_b1.values()),
         launches_by_path=by_path(main_run["launches"], train["fwd"], 0, 0,
-                                 bg["launches"]["B1"], eval_b1, **deep_b1),
+                                 bg["launches"]["B1"], eval_b1, **deep_b1, **q_b1),
         launches_per_biggan_loop_step=bg["per_step"]["B1"],
         launches_per_eval_pass={m: r["launches"]["B1"] for m, r in ev["runs"].items()},
         max_abs_err=max_err["fwd"],
@@ -3573,6 +3974,7 @@ def main(argv) -> int:
                                 demo=inference["demo_launches"],
                                 conditioned_sampler=inference["conditioned_launches"]),
         prepare_and_eval_clis={k: v for k, v in prep.items() if not k.endswith("launches")},
+        int8_and_export={k: v for k, v in int8.items() if k != "stylegan2"},
     ), dict(
         name="sagan_attention_bwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_bwd.cu",
@@ -3603,9 +4005,11 @@ def main(argv) -> int:
     ), dict(
         name="bias_act", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
         replaces="ic_gan_tpu/ops/pallas/bias_act.py:103",
-        launches=sg2_run["launches"]["B4"] + loop["launches"]["B4"] + prep["calc_launches"],
+        launches=sg2_run["launches"]["B4"] + loop["launches"]["B4"] + prep["calc_launches"]
+        + sum(q_b4.values()),
         launches_by_path=by_path(0, 0, sg2_run["launches"]["B4"], loop["launches"]["B4"],
-                                 calc_metrics_cli=prep["calc_launches"]),
+                                 calc_metrics_cli=prep["calc_launches"], **q_b4),
+        int8_and_export=int8["stylegan2"],
         launches_per_step={k: v["B4"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
         launches_per_loop_step=per_loop_step("B4"),
         max_abs_err=sg2_err["B4"], ms=b4["kernel_ms"], plain_ms=b4["plain_ms"],

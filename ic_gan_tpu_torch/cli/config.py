@@ -99,7 +99,8 @@ BIGGAN_KEYS = {
 INFERENCE_KEYS = {
     "backbone", "model_backbone", "pth_dir", "network_pkl", "suffix", "which_model",
     "root_path", "trained_dataset", "deploy_bf16", "truncation_psi", "noise_mode",
-    "standing_batch_size", "quantize_serving", "stored_features", "num_conditionings_gen",
+    "standing_batch_size", "quantize_serving", "quant_calibration_images", "quantize_dynamic",
+    "stored_features", "num_conditionings_gen",
     "num_imgs_gen", "index", "swap_target", "visualize_instance_images", "dataset_path",
     "out_path", "out_dir", "num_imgs", "num_samples", "input_image",
     "feature_extractor_weights",

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 import os
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -157,25 +158,38 @@ def load_model_inference(cfg: Dict[str, Any], device=None):
     standing batch-norm statistics into the module (fresh z from a generator
     seeded ``seed``, ``num_standing_accumulations`` batches of
     ``standing_batch_size``; ref ``utils.py:1679-1695``) and returns the
-    sampler.  ``quantize_serving`` (int8) is not ported (ROADMAP.md A.15)."""
+    sampler.
+
+    ``quantize_serving`` serves the generator in int8 (``io/quant.py``),
+    calibrated on ``quant_calibration_images`` (default 64) draws from a
+    ``RandomState(seed)``: z, labels (one-hot c for StyleGAN2) and features
+    from ``stored_features`` when given, else N(0, 1) with a warning.
+    Calibration runs on the float32 weights in the config's compute type,
+    before the ``deploy_bf16`` cast.  ``quantize_dynamic`` turns on
+    StyleGAN2's per-sample range boost; a BigGAN backbone has none and
+    warns."""
     from ic_gan_tpu_torch.io.deploy import (
         accumulate_standing_stats,
         cast_params,
         fold_spectral_norm,
         make_sampler,
+        set_compute_dtype,
     )
 
-    if cfg.get("quantize_serving", False):
-        raise NotImplementedError("int8 serving (quantize_serving) is not ported yet "
-                                  "(ROADMAP.md A.15)")
     if "backbone" not in cfg and cfg.get("model_backbone"):
         cfg = dict(cfg, backbone=cfg["model_backbone"])   # the reference demo's spelling
     device = resolve_device(device)
     backbone = cfg.get("backbone", "biggan")
     bf16 = cfg.get("deploy_bf16", False)
-    g, model_cfg = load_generator(cfg, device,
-                                  dtype=torch.bfloat16 if bf16 and backbone == "biggan" else None)
+    quantize = cfg.get("quantize_serving", False)
+    bf16_compute = bf16 and backbone == "biggan"
+    g, model_cfg = load_generator(
+        cfg, device, dtype=torch.bfloat16 if bf16_compute and not quantize else None)
     fold_spectral_norm(g)
+    if quantize:
+        _quantize_for_serving(g, cfg, model_cfg, backbone, device)
+        if bf16_compute:
+            model_cfg = set_compute_dtype(g, torch.bfloat16).cfg
     if bf16:
         cast_params(g, torch.bfloat16)
     apply_kwargs = {}
@@ -205,6 +219,50 @@ def load_model_inference(cfg: Dict[str, Any], device=None):
     sampler.model_cfg = model_cfg
     sampler.with_standing_stats = with_standing_stats
     return sampler, model_cfg
+
+
+def _quantize_for_serving(g, cfg: Dict[str, Any], model_cfg, backbone: str, device):
+    """``load_model_inference``'s int8 calibration and quantization, as JAX
+    ``cli/inference.py:185-245`` draws it."""
+    from ic_gan_tpu_torch.io.quant import quantize_stylegan2_variables, quantize_variables
+
+    sg2 = backbone == "stylegan2"
+    rng = np.random.RandomState(cfg.get("seed", 0))
+    n_cal = cfg.get("quant_calibration_images", 64)
+    z = rng.randn(n_cal, latent_dim(model_cfg))
+    label = None
+    if sg2 and model_cfg.c_dim:
+        label = np.eye(model_cfg.c_dim, dtype=np.float32)[rng.randint(0, model_cfg.c_dim, n_cal)]
+    elif not sg2 and model_cfg.class_cond:
+        label = rng.randint(0, model_cfg.n_classes, n_cal)
+    width = model_cfg.h_dim if sg2 else (model_cfg.instance_cond and model_cfg.instance_sz)
+    feats = None
+    if width:
+        path = cfg.get("stored_features")
+        if path and os.path.exists(path):
+            bank = load_stored_features(path)[0]
+            feats = bank[rng.randint(0, len(bank), n_cal)]
+        else:
+            warnings.warn("quantize_serving calibrates on N(0,1) features; pass "
+                          "stored_features for real statistics", stacklevel=3)
+            feats = rng.randn(n_cal, width)
+    def as_t(a, dtype):
+        return None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
+
+    z, feats = as_t(z, torch.float32), as_t(feats, torch.float32)
+    if sg2:
+        quantize_stylegan2_variables(
+            g, z, as_t(label, torch.float32), feats,
+            act_dynamic=cfg.get("quantize_dynamic", False),
+            truncation_psi=cfg.get("truncation_psi", 1.0),
+            noise_mode=cfg.get("noise_mode", "const"))
+        return
+    if cfg.get("quantize_dynamic", False):
+        # The JAX package reads the flag for StyleGAN2 only and drops it here
+        # without a word (ROADMAP.md §C).
+        warnings.warn("quantize_dynamic applies to the StyleGAN2 backbone only; the "
+                      "BigGAN int8 sampler has no dynamic range mode", stacklevel=3)
+    quantize_variables(g, z, as_t(label, torch.long), feats)
 
 
 def get_conditionings(num_instances: int, num_imgs_gen: int, stored_features: np.ndarray,

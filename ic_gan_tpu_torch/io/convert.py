@@ -11,6 +11,8 @@ by the statistics each ``norm_style`` keeps (``bn`` its three buffers,
 ``tree_to_torch`` applies a map to any tree shaped like one collection
 (raw gradients, EMA parameters).  The StyleGAN2 trees map by rule, both ways
 (``stylegan2_state_dict_from_jax``, ``stylegan2_variables_from_state_dict``).
+The int8 serving mode's ``quant`` collection carries across into the port's
+buffers (``generator_quant_from_jax``, ``stylegan2_quant_from_jax``).
 """
 
 from __future__ import annotations
@@ -226,6 +228,41 @@ def discriminator_state_dict_from_jax(variables: Mapping,
     deep = isinstance(cfg, BigGANDeepConfig)
     key_map = deep_discriminator_key_map(cfg) if deep else discriminator_key_map(cfg)
     return _state_dict_from_jax(variables, key_map)
+
+
+def _quant_leaf(leaf: str, value) -> np.ndarray:
+    """A JAX ``quant`` leaf in the port's layout: HWIO kernels OIHW, an
+    ``up2x`` conv's phase kernels (4, 2, 2, I, O) → (4, O, I, 2, 2); scales
+    and the ``act_dynamic`` marker as they are."""
+    v = np.asarray(value)
+    if leaf == "qkernel" and v.ndim == 5:
+        return np.array(np.transpose(v, (0, 4, 3, 1, 2)), order="C")
+    if leaf == "qkernel":
+        return _t_conv(v)
+    return np.array(v)
+
+
+def generator_quant_from_jax(quant: Mapping, cfg: BigGANConfig) -> Dict[str, torch.Tensor]:
+    """The JAX ``quant`` collection of a BigGAN or BigGAN-deep generator
+    (``ic_gan_tpu/io/quant.py:quantize_variables``) as the port's int8
+    buffers, ``{"<conv>.<buffer>": CPU tensor}``, for
+    ``io.quant.load_quant_state_dict``: each conv found through the key map
+    of its weight."""
+    deep = isinstance(cfg, BigGANDeepConfig)
+    key_map = deep_generator_key_map(cfg) if deep else generator_key_map(cfg)
+    convs = {path[1:-1]: key[:-len(".weight")] for path, (key, _) in key_map.items()
+             if path[0] == "params" and path[-1] == "kernel"}
+    return {f"{convs[path[:-1]]}.{path[-1]}": torch.from_numpy(_quant_leaf(path[-1], v))
+            for path, v in _flatten(quant).items()}
+
+
+def stylegan2_quant_from_jax(quant: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``quant`` collection of a StyleGAN2 generator
+    (``quantize_stylegan2_variables``) as the port's int8 buffers: the
+    layer's path joined by dots, the composite ``up=2`` kernel (3, 3, I, 4·O)
+    → (4·O, I, 3, 3), phase major as both packages order it."""
+    return {".".join(path): torch.from_numpy(_quant_leaf(path[-1], v))
+            for path, v in _flatten(quant).items()}
 
 
 def tree_to_torch(tree: Mapping, key_map) -> Dict[str, torch.Tensor]:

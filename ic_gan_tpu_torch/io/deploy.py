@@ -6,11 +6,14 @@ power iteration.  ``cast_params`` stores the weights in bfloat16, keeping the
 batch-norm statistics (buffers) in float32.  ``make_sampler`` runs a folded
 generator over requests of any size in fixed batches, padding the tail.
 ``accumulate_standing_stats`` drives BigGAN's standing-statistics eval mode.
-All of them change the module in place.
+All of them change the module in place.  ``export_sampler`` saves the
+fixed-batch forward with its weights as one ``torch.export`` program, which
+``load_exported_sampler`` runs without the model code.
 """
 
 from __future__ import annotations
 
+import io
 from typing import Callable, Optional
 
 import numpy as np
@@ -19,6 +22,7 @@ import torch.nn as nn
 
 from ic_gan_tpu_torch import resolve_device
 from ic_gan_tpu_torch.models.layers import _SpectralNormed
+from ic_gan_tpu_torch.models.stylegan2 import _Filtered
 
 
 def fold_spectral_norm(module: nn.Module) -> nn.Module:
@@ -32,13 +36,27 @@ def fold_spectral_norm(module: nn.Module) -> nn.Module:
 
 
 def cast_params(module: nn.Module, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
-    """Cast the floating-point parameters to ``dtype``.  Buffers (batch-norm
-    statistics, which parameterize a rsqrt) stay float32."""
+    """Cast the floating-point parameters to ``dtype``.  Buffers stay as they
+    are: batch-norm statistics (which parameterize a rsqrt) in float32, and
+    the int8 serving mode's codes and float32 scales (``io/quant.py``;
+    rounding a scale to bf16 would add a systematic gain error per
+    channel)."""
     with torch.no_grad():
         for p in module.parameters():
             if p.is_floating_point():
                 p.data = p.data.to(dtype)
     return module
+
+
+def set_compute_dtype(g: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Switch a built BigGAN or BigGAN-deep G to compute in ``dtype``: every
+    layer's ``dtype`` and ``g.cfg.dtype``.  The int8 serving mode calibrates
+    in the config's type and serves in bf16 after this and ``cast_params``."""
+    for m in g.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+    g.cfg = g.cfg.replace(dtype=dtype)
+    return g
 
 
 def reset_standing_stats(module: nn.Module) -> nn.Module:
@@ -127,3 +145,84 @@ def padded_rows(a, lo: int, hi: int, pad: int, device):
         return None
     a = torch.as_tensor(a[lo:hi], device=device)
     return torch.cat([a, a[:1].expand(pad, *a.shape[1:])]) if pad else a
+
+
+class _ExportedForward(nn.Module):
+    """``g(z, label, feats, **apply_kwargs)`` → NHWC images, zero-width
+    conditioning standing for none."""
+
+    def __init__(self, g: nn.Module, apply_kwargs: dict):
+        super().__init__()
+        self.g, self.apply_kwargs = g, apply_kwargs
+
+    def forward(self, z, label, feats):
+        label = None if label.shape[-1] == 0 else label
+        feats = None if feats.shape[-1] == 0 else feats
+        return self.g(z, label, feats, **self.apply_kwargs).permute(0, 2, 3, 1)
+
+
+def _sampler_signature(g: nn.Module, batch_size: int) -> list:
+    """(shape, dtype) of (z, label or c, feats) for the export; a zero-width
+    placeholder stands in for absent conditioning.  BigGAN (and BigGAN-deep)
+    takes integer class labels and ``instance_sz`` features, StyleGAN2 a
+    float ``c_dim`` vector and ``h_dim`` features."""
+    cfg, b = g.cfg, batch_size
+    if hasattr(cfg, "effective_dim_z"):
+        return [((b, cfg.effective_dim_z), torch.float32),
+                ((b,) if cfg.class_cond else (b, 0), torch.int64),
+                ((b, cfg.instance_sz if cfg.instance_cond else 0), torch.float32)]
+    return [((b, cfg.z_dim), torch.float32), ((b, cfg.c_dim), torch.float32),
+            ((b, cfg.h_dim), torch.float32)]
+
+
+def export_sampler(g: nn.Module, batch_size: int, *, device=None, **apply_kwargs) -> bytes:
+    """The deployment sampler as the bytes of one saved ``torch.export``
+    program: the forward ``g(z, label, feats, **apply_kwargs)`` (g moved to
+    ``device``, default CUDA, σ folded) at a fixed batch, with its weights
+    as they are: cast them first with ``cast_params``, quantize them with
+    ``io/quant.py``.  The attention and bias-activation kernels stay in the
+    program as the ops ``ic_gan_tpu::sagan_attention_fwd`` and
+    ``ic_gan_tpu::bias_act_fwd``.  A StyleGAN2 generator needs ``noise_mode``
+    "const" or "none".  Changes ``g`` in place (folded, its parameters
+    frozen)."""
+    device = resolve_device(device)
+    g = g.to(device).eval()
+    if not hasattr(g.cfg, "effective_dim_z") \
+            and apply_kwargs.get("noise_mode", "random") not in ("const", "none"):
+        raise ValueError("a StyleGAN2 sampler exports with noise_mode 'const' or 'none'")
+    fold_spectral_norm(g)
+    g.requires_grad_(False)
+    for m in g.modules():   # each FIR filter's copy on the device, made before the trace
+        if isinstance(m, _Filtered):
+            m.resample_filter(device)
+    args = tuple(torch.zeros(shape, dtype=dt, device=device)
+                 for shape, dt in _sampler_signature(g, batch_size))
+    program = torch.export.export(_ExportedForward(g, apply_kwargs), args)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue()
+
+
+def load_exported_sampler(data: bytes) -> Callable:
+    """Load an ``export_sampler`` program.  Returns ``sampler(z, label=None,
+    feats=None, device_output=False)`` at the exported batch, on the device
+    it was exported on; absent conditioning becomes the zero-width
+    placeholder.  Images as ``make_sampler`` gives them.  Needs only this
+    package's ops, which importing ``ic_gan_tpu_torch.ops`` registers."""
+    import ic_gan_tpu_torch.ops  # noqa: F401  (registers the ops the program calls)
+
+    program = torch.export.load(io.BytesIO(data))
+    placeholders = {n.name: n.meta["val"] for n in program.graph.nodes if n.op == "placeholder"}
+    specs = [placeholders[name] for name in program.graph_signature.user_inputs]
+    run = program.module()
+
+    def sampler(z, label=None, feats=None, device_output: bool = False):
+        args = [torch.zeros(s.shape, dtype=s.dtype, device=s.device) if a is None
+                else torch.as_tensor(a).to(device=s.device, dtype=s.dtype)
+                for a, s in zip((z, label, feats), specs)]
+        with torch.no_grad():
+            out = run(*args)
+        return out if device_output else np.ascontiguousarray(out.cpu().numpy())
+
+    sampler.specs, sampler.program = specs, program
+    return sampler

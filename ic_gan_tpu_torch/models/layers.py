@@ -29,10 +29,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ic_gan_tpu_torch.ops.attention import sagan_attention
+from ic_gan_tpu_torch.ops.int8_conv import conv2d_int8
 from ic_gan_tpu_torch.ops.resample import (
     avg_pool_2x,
     conv3x3_avg_pool_down,
     conv3x3_nearest_up,
+    conv3x3_nearest_up_q,
     max_pool_2x,
     upsample_nearest_2x,
 )
@@ -161,7 +163,14 @@ class SNConv(_SpectralNormed):
         self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if bias else None
         self._init_sn(out_features, num_svs, num_itrs, eps, device, generator)
 
+    @property
+    def quantized(self) -> bool:
+        """True once ``io/quant.py`` has given the layer its int8 buffers."""
+        return "qkernel" in self._buffers
+
     def forward(self, x):
+        if self.quantized and not self.down2x:
+            return self._forward_int8(x)
         x = x.to(self.dtype)
         w = self.w_bar().to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
@@ -170,6 +179,31 @@ class SNConv(_SpectralNormed):
         if self.down2x:
             return conv3x3_avg_pool_down(x, w, b)
         return F.conv2d(x, w, b, padding=self.padding)
+
+    def _forward_int8(self, x):
+        """int8 serving (JAX ``layers.py:185-212``): x quantized with the
+        calibrated per-tensor ``act_scale``, the int8 kernel (the four phase
+        kernels for ``up2x``) summed exactly in int32, the sum cast to the
+        compute type and dequantized by the per-output-channel
+        ``wscale · act_scale``, then the bias added."""
+        sx = self.act_scale
+        xq = quantize_activation(x, sx)
+        scale = self.wscale * sx
+        if self.up2x:
+            y = conv3x3_nearest_up_q(xq, self.qkernel, scale, self.dtype)
+        else:
+            y = conv2d_int8(xq, self.qkernel, self.padding).to(self.dtype) \
+                * scale.to(self.dtype)[:, None, None]
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)[:, None, None]
+        return y
+
+
+def quantize_activation(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / scale), ±127)`` as int8, in float32 (round half to
+    even, as ``jnp.round``); the divide is the JAX package's, not a multiply
+    by the reciprocal, so the codes are its bit for bit."""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
 
 
 class SNEmbed(_SpectralNormed):
@@ -354,6 +388,12 @@ class ScaledBatchNorm(CrossReplicaBatchNorm):
         return out * self.gain[:, None, None] + self.bias[:, None, None]
 
 
+# Whether a folded ``SelfAttention`` runs θ/φ/g as one conv (a list, so that
+# callers change it in place).  ``io/quant.calibrate_conv_scales`` turns it
+# off, so that each of the three convs runs, and records its input, alone.
+_ATTN_FUSION = [True]
+
+
 class SelfAttention(nn.Module):
     """SA-GAN non-local block (ref ``Attention``): 1×1 spectrally normalized
     θ/φ/g/o convs, φ and g 2×2 max-pooled, o = softmax(θφᵀ)·g through the
@@ -372,21 +412,40 @@ class SelfAttention(nn.Module):
         self.o = SNConv(features // 2, features, **sn)
         self.gamma = nn.Parameter(torch.zeros((), device=device))
 
+    def _fuses(self) -> bool:
+        """θ/φ/g run as one 1×1 conv, one read of the input instead of three,
+        once spectral norm is folded (an unfolded layer must divide each
+        weight by its own σ) and while ``_ATTN_FUSION`` holds."""
+        return _ATTN_FUSION[0] and all(c.folded for c in (self.theta, self.phi, self.g))
+
     def _fused_qkv_weight(self) -> Optional[torch.Tensor]:
-        """θ|φ|g weights stacked for one 1×1 conv: one read of the input
-        instead of three.  Only once spectral norm is folded; an unfolded
-        layer must divide each weight by its own σ, so it gets None."""
-        if not (self.theta.folded and self.phi.folded and self.g.folded):
+        """θ|φ|g weights stacked for the fused conv, or None (``_fuses``)."""
+        if not self._fuses():
             return None
         return torch.cat([self.theta.weight, self.phi.weight, self.g.weight])
+
+    def _fused_qkv(self, x) -> Optional[torch.Tensor]:
+        """θ|φ|g from the fused conv, or None.  In int8 serving the three
+        convs' records are concatenated: calibrated on one input, they share
+        one activation scale (θ's is taken, as the JAX package takes it,
+        ``layers.py:602-617``)."""
+        if not self._fuses():
+            return None
+        if self.theta.quantized:
+            convs = (self.theta, self.phi, self.g)
+            sx = self.theta.act_scale
+            qk = torch.cat([c.qkernel for c in convs])
+            scale = torch.cat([c.wscale for c in convs]) * sx
+            return conv2d_int8(quantize_activation(x, sx), qk).to(self.dtype) \
+                * scale.to(self.dtype)[:, None, None]
+        return F.conv2d(x.to(self.dtype), self._fused_qkv_weight().to(self.dtype))
 
     def forward(self, x):
         n, _, h, w = x.shape
         c8, c2 = self.theta.weight.shape[0], self.g.weight.shape[0]
-        wf = self._fused_qkv_weight()
-        if wf is not None:
-            theta, phi, g = F.conv2d(x.to(self.dtype), wf.to(self.dtype)).split(
-                [c8, c8, c2], dim=1)
+        fused = self._fused_qkv(x)
+        if fused is not None:
+            theta, phi, g = fused.split([c8, c8, c2], dim=1)
         else:
             theta, phi, g = self.theta(x), self.phi(x), self.g(x)
         phi, g = max_pool_2x(phi), max_pool_2x(g)

@@ -32,6 +32,7 @@ import torch.nn as nn
 from ic_gan_tpu_torch import resolve_device
 from ic_gan_tpu_torch.ops.bias_act import activation_funcs, bias_act
 from ic_gan_tpu_torch.ops.conv_resample import conv2d_resample, is_symmetric
+from ic_gan_tpu_torch.ops.int8_conv import conv2d_int8
 from ic_gan_tpu_torch.ops.resample import downsample2d, setup_filter, upsample2d
 
 SQRT_HALF = math.sqrt(0.5)
@@ -72,12 +73,20 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor
                      noise: Optional[torch.Tensor] = None, up: int = 1, down: int = 1,
                      padding: int = 0, resample_filter: Optional[torch.Tensor] = None,
                      demodulate: bool = True, flip_weight: bool = True,
-                     f_symmetric: Optional[bool] = None) -> torch.Tensor:
+                     f_symmetric: Optional[bool] = None,
+                     quant: Optional[dict] = None) -> torch.Tensor:
     """Style modulation, conv and demodulation (ref ``networks.py:37-117``).
     x (N, I, H, W), weight (O, I, kh, kw), styles (N, I); noise broadcasts
-    to the output."""
+    to the output.
+
+    ``quant`` (int8 serving, ``io/quant.py``) holds the layer's
+    ``act_scale``, ``qkernel`` and ``wscale`` (and ``act_dynamic`` where
+    set): the modulated input is quantized and convolved in int8
+    (``_modulated_conv_int8``).  The demodulation still comes from the raw
+    weight; the bf16 pre-normalization is skipped, as the JAX package skips
+    it (it cancels, and int32 sums cannot overflow)."""
     out_ch, in_ch, kh, kw = weight.shape
-    if x.dtype == torch.bfloat16 and demodulate:
+    if x.dtype == torch.bfloat16 and demodulate and quant is None:
         # Pre-normalize against low-precision overflow (ref :56-63); it
         # cancels between the conv and the demodulation coefficients.
         weight = weight * (1.0 / math.sqrt(in_ch * kh * kw)
@@ -88,13 +97,49 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor
         w2 = _f32p(weight).square().sum(dim=(2, 3))                       # (O, I)
         dcoefs = torch.rsqrt(_f32p(styles).square() @ w2.T + 1e-8)        # (N, O)
     x = x * styles.to(x.dtype)[:, :, None, None]
-    x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up, down=down,
-                        padding=padding, flip_weight=flip_weight, f_symmetric=f_symmetric)
+    if quant is not None:
+        x = _modulated_conv_int8(x, quant, up, padding)
+    else:
+        x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up, down=down,
+                            padding=padding, flip_weight=flip_weight, f_symmetric=f_symmetric)
     if demodulate:
         x = x * dcoefs.to(x.dtype)[:, :, None, None]
     if noise is not None:
         x = x + noise.to(x.dtype)
     return x
+
+
+def _modulated_conv_int8(xm: torch.Tensor, quant: dict, up: int, padding: int) -> torch.Tensor:
+    """The int8 conv of the modulated input ``xm`` (JAX ``stylegan2.py:96-155``).
+
+    ``act_scale`` is a vector over the input channels (per-channel, folded
+    into the weight when it was quantized, so the dequantization is
+    ``wscale`` alone) or a scalar (per-tensor: ``wscale · act_scale``).  With
+    ``act_dynamic`` each sample's quantized input is first boosted by 127/t,
+    t its largest |xm / act_scale| (reduced over space per channel first),
+    and the output scaled back by t/127; t has no upper bound, so neither
+    has the boost, as in the JAX package.  ``up`` 2 runs the composite
+    polyphase kernel (4·O outputs, phase major) at the input's resolution
+    and shuffles the phases into the 2× output."""
+    sx, qk, ws = quant["act_scale"], quant["qkernel"], quant["wscale"]
+    per_channel = sx.dim() >= 1
+    sxb = sx[:, None, None] if per_channel else sx
+    xs = _f32p(xm) / sxb
+    t = None
+    if "act_dynamic" in quant:
+        m = _f32p(xm).abs().amax(dim=(2, 3))                              # (N, I)
+        t = torch.clamp_min((m / sx).amax(dim=-1), 1e-30)[:, None, None, None]
+        xs = xs * (127.0 / t)
+    xq = torch.clamp(torch.round(xs), -127, 127).to(torch.int8)
+    deq = ws.reshape(-1) if per_channel else ws.reshape(-1) * sx
+    y = conv2d_int8(xq, qk, padding if up == 1 else 1).to(xm.dtype) \
+        * deq.to(xm.dtype)[:, None, None]
+    if up != 1:
+        n, _, h, w = xm.shape
+        y = y.reshape(n, 2, 2, -1, h, w).permute(0, 3, 4, 1, 5, 2).reshape(n, -1, 2 * h, 2 * w)
+    if t is not None:
+        y = y * (t * (1.0 / 127.0)).to(xm.dtype)
+    return y
 
 
 class FullyConnected(nn.Module):
@@ -238,11 +283,26 @@ class SynthesisLayer(_Filtered):
                                                         device, generator))
         self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
         self._init_filter(resample_filter)
+        # int8 serving (io/quant.py): calibration sets this to a zero (I,)
+        # tensor, and each forward takes into it the per-input-channel
+        # absmax of the modulated input (JAX ``_layer_quant``'s sow).
+        self.quant_calib: Optional[torch.Tensor] = None
+
+    def quant(self) -> Optional[dict]:
+        """The int8 buffers that ``io/quant.py`` set, or None."""
+        if "qkernel" not in self._buffers:
+            return None
+        names = ("act_scale", "qkernel", "wscale", "act_dynamic")
+        return {k: self._buffers[k] for k in names if k in self._buffers}
 
     def forward(self, x, w, noise_mode: str = "random", gain: float = 1.0, generator=None):
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"noise_mode must be random, const or none, got {noise_mode!r}")
         styles = self.affine(w)
+        quant = self.quant()
+        if quant is None and self.quant_calib is not None:
+            m = _f32p(x * styles.to(x.dtype)[:, :, None, None]).abs().amax(dim=(0, 2, 3))
+            self.quant_calib = torch.maximum(self.quant_calib, m)
         noise = None
         if self.use_noise and noise_mode == "random":
             noise = torch.randn((x.shape[0], 1, self.resolution, self.resolution),
@@ -252,7 +312,8 @@ class SynthesisLayer(_Filtered):
             noise = (self.noise_const * self.noise_strength)[None, None]
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
                              padding=self.padding, resample_filter=self.resample_filter(x.device),
-                             flip_weight=(self.up == 1), f_symmetric=self.f_symmetric)
+                             flip_weight=(self.up == 1), f_symmetric=self.f_symmetric,
+                             quant=quant)
         clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias.to(x.dtype), dim=1, act=self.activation,
                         gain=activation_funcs[self.activation].def_gain * gain, clamp=clamp)

@@ -2,7 +2,10 @@
 layout, with its first-order gradient.
 
 ``sagan_attention`` is ``SAGANAttention.apply``, the counterpart of the JAX
-package's ``custom_vjp`` (``ic_gan_tpu/ops/pallas/attention.py:182-216``).
+package's ``custom_vjp`` (``ic_gan_tpu/ops/pallas/attention.py:182-216``),
+wherever a gradient is wanted; at inference it calls the forward as the
+``torch.library`` op ``ic_gan_tpu::sagan_attention_fwd``, which
+``torch.export`` keeps in a program (``io/deploy.py:export_sampler``).
 On CUDA tensors its forward launches ``csrc/sagan_attention_fwd.cu`` (the
 port of ``_attn_kernel``) and its backward ``csrc/sagan_attention_bwd.cu``
 (the port of ``_attn_bwd_kernel``); on CPU tensors they run their plain
@@ -207,4 +210,33 @@ class SAGANAttention(torch.autograd.Function):
         return sagan_attention_bwd(theta, phi, g, do.contiguous(), lse)
 
 
-sagan_attention = SAGANAttention.apply
+@torch.library.custom_op("ic_gan_tpu::sagan_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _attention_op(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The forward as a ``torch.library`` op, so that ``torch.export`` keeps
+    it in a program (a ctypes launch cannot be traced): on CUDA the kernel
+    launch, counted as every launch is."""
+    return sagan_attention_fwd(theta, phi, g)
+
+
+@_attention_op.register_kernel("cpu")
+def _(theta, phi, g):
+    return sagan_attention_ref(theta, phi, g)
+
+
+@_attention_op.register_fake
+def _(theta, phi, g):
+    return g.new_empty((theta.shape[0], theta.shape[1], g.shape[2]))
+
+
+def sagan_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """softmax(θ·φᵀ)·g.  Where a gradient is wanted, ``SAGANAttention``;
+    at inference the op ``torch.ops.ic_gan_tpu.sagan_attention_fwd``, the
+    same forward, which an exported program keeps."""
+    if torch.is_grad_enabled() and (theta.requires_grad or phi.requires_grad
+                                    or g.requires_grad):
+        return SAGANAttention.apply(theta, phi, g)
+    if len({theta.device, phi.device, g.device}) != 1 or theta.device.type not in ("cpu", "cuda"):
+        raise ValueError("sagan_attention runs on CPU or CUDA tensors on one device, got "
+                         f"{theta.device}, {phi.device}, {g.device}")
+    return torch.ops.ic_gan_tpu.sagan_attention_fwd(theta, phi, g)

@@ -5,7 +5,10 @@ formula) and of its Pallas twin ``ic_gan_tpu/ops/pallas/bias_act.py``
 (``bias_act_fused``).  The bias lies along ``dim`` (1 for NCHW activations
 and for (N, C) features), so neither layout needs a transpose.
 
-``bias_act`` is ``BiasAct.apply``, the counterpart of the JAX ``custom_jvp``.
+``bias_act`` is ``BiasAct.apply``, the counterpart of the JAX ``custom_jvp``,
+wherever a gradient is wanted; at inference it calls the forward as the
+``torch.library`` op ``ic_gan_tpu::bias_act_fwd``, which ``torch.export``
+keeps in a program (``io/deploy.py:export_sampler``).
 On CUDA tensors its forward launches ``csrc/bias_act.cu:bias_act_fwd`` and
 its backward ``bias_act_bwd`` (each one pass, computed in float32, rounded
 once to the input's type); on CPU tensors both run their plain versions
@@ -292,13 +295,42 @@ class BiasActGrad(torch.autograd.Function):
         return (d_gy, d_x, d_b, None, None, None, None, None)
 
 
+@torch.library.custom_op("ic_gan_tpu::bias_act_fwd", mutates_args=(), device_types="cuda")
+def _bias_act_op(x: torch.Tensor, b: Optional[torch.Tensor], dim: int, act: str,
+                 alpha: Optional[float], gain: Optional[float],
+                 clamp: Optional[float]) -> torch.Tensor:
+    """The forward as a ``torch.library`` op, so that ``torch.export`` keeps
+    it in a program (a ctypes launch cannot be traced): on CUDA the kernel
+    launch, counted as every launch is."""
+    return bias_act_fwd(x, b, dim, act, alpha, gain, clamp)
+
+
+@_bias_act_op.register_kernel("cpu")
+def _(x, b, dim, act, alpha, gain, clamp):
+    y = bias_act_ref(x, b, dim, act, alpha, gain, clamp)
+    return y.clone() if y is x else y   # an op's output never aliases its input
+
+
+@_bias_act_op.register_fake
+def _(x, b, dim, act, alpha, gain, clamp):
+    return torch.empty_like(x)
+
+
 def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None, dim: int = 1,
              act: str = "linear", alpha: Optional[float] = None,
              gain: Optional[float] = None, clamp: Optional[float] = None) -> torch.Tensor:
     """``clamp(gain·act(x + b))`` along channel ``dim``, differentiable to
     any order.  ``gain`` and ``clamp`` default to the activation's gain and
-    no clamping (reference ``bias_act.py:131-162``)."""
-    return BiasAct.apply(x, b, dim, act, alpha, gain, clamp)
+    no clamping (reference ``bias_act.py:131-162``).  Where no gradient is
+    wanted it calls the forward as the op ``torch.ops.ic_gan_tpu.bias_act_fwd``,
+    which an exported program keeps."""
+    if torch.is_grad_enabled() and (x.requires_grad or (b is not None and b.requires_grad)):
+        return BiasAct.apply(x, b, dim, act, alpha, gain, clamp)
+    devices = {x.device} if b is None else {x.device, b.device}
+    if len(devices) != 1 or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bias_act runs on CPU or CUDA tensors on one device, got {devices}")
+    return torch.ops.ic_gan_tpu.bias_act_fwd(x.contiguous(), _contiguous(b), dim, act, alpha,
+                                             gain, clamp)
 
 
 def bias_act_fused(x: torch.Tensor, b: Optional[torch.Tensor] = None,

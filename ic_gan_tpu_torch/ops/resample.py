@@ -1,7 +1,7 @@
 """Resampling in NCHW.  Port of ``ic_gan_tpu/ops/resample.py``: the BigGAN
-subset (nearest 2× upsample, the polyphase upsample-conv, 2×2 max and average
-pools, the pooled downsample-conv) and the StyleGAN2 subset (``setup_filter``
-and the ``upfirdn2d`` family).
+subset (nearest 2× upsample, the polyphase upsample-conv and its int8 form,
+2×2 max and average pools, the pooled downsample-conv) and the StyleGAN2
+subset (``setup_filter`` and the ``upfirdn2d`` family).
 
 ``upfirdn2d`` takes the upstream formulation (``torch_utils/ops/
 upfirdn2d.py``): zero-upsample, pad (negative pads crop), FIR as depthwise
@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ic_gan_tpu_torch.ops.int8_conv import conv2d_int8
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -66,6 +68,23 @@ def _interleave_phases(phases, x_shape):
     y = torch.stack(phases).reshape(2, 2, n, -1, h, w)
     y = y.permute(2, 3, 4, 0, 5, 1)  # N, C, H, di, W, dj
     return y.reshape(n, -1, 2 * h, 2 * w)
+
+
+def conv3x3_nearest_up_q(xq: torch.Tensor, qkernels: torch.Tensor, scales: torch.Tensor,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """int8 ``conv3x3_nearest_up``: the four 2×2 phase convs summed exactly in
+    int32 (``ops/int8_conv.py``), each cast to ``out_dtype`` and dequantized
+    per output channel, then interleaved.  xq (N, Cin, H, W) int8; qkernels
+    (4, Cout, Cin, 2, 2) int8 in ``_PHASE_OFFSETS`` order; scales (4, Cout),
+    the combined factor (activation scale × weight scale of each phase).
+    The int8 serving mode quantizes the phase kernels themselves
+    (``io/quant.py``): their taps are sums of taps of the 3×3 kernel, so
+    quantizing the 3×3 kernel first would round twice."""
+    phases = []
+    for i, (di, dj) in enumerate(_PHASE_OFFSETS):
+        y = conv2d_int8(xq, qkernels[i], (1 - di, di, 1 - dj, dj))
+        phases.append(y.to(out_dtype) * scales[i].to(out_dtype)[:, None, None])
+    return _interleave_phases(phases, xq.shape)
 
 
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:

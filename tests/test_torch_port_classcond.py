@@ -10,6 +10,8 @@ D; ``apply_weight_init``'s choice of weights and the moments of its draws;
 and a reference-layout ``.pth`` bundle the test writes.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,32 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+CHEAP_XLA = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def compile_async(fn, *args, cheap: bool = True):
+    """``jax.jit(fn)`` traced and lowered for ``args`` here, and compiled in
+    a thread of its own: XLA compiles without holding the GIL, so whatever
+    the caller does next (the port's side of a test, the next trace) runs
+    meanwhile.  ``cheap`` takes ``cheap_jit``'s settings, else XLA's
+    defaults.  Returns a future of the compiled function."""
+    lowered = jax.jit(fn).lower(*args)
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(lowered.compile, compiler_options=CHEAP_XLA if cheap else None)
+    pool.shutdown(wait=False)
+    return future
+
+
+def in_background(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` in a thread of its own, for the JAX side of a
+    test: it compiles and runs without holding the GIL for most of its time,
+    so the test runs the port's side meanwhile.  A future of its result."""
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(fn, *args, **kwargs)
+    pool.shutdown(wait=False)
+    return future
+
+
 def cheap_jit(fn):
     """``fn`` jitted, each input signature compiled at its first call with
     XLA's CPU backend at its cheapest settings (optimization level 0, no
@@ -54,9 +82,7 @@ def cheap_jit(fn):
             (np.shape(x), np.result_type(x).name) if hasattr(x, "dtype") else (type(x), x)
             for x in leaves))
         if key not in cache:
-            cache[key] = jitted.lower(*args).compile(compiler_options={
-                "xla_backend_optimization_level": 0,
-                "xla_llvm_disable_expensive_passes": True})
+            cache[key] = jitted.lower(*args).compile(compiler_options=CHEAP_XLA)
         return cache[key](*args)
 
     return call
@@ -181,25 +207,42 @@ def test_group_norm_group_choice_matches_jax(style):
     np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-5)
 
 
-@pytest.mark.parametrize("style", ["in", "gn", "nonorm"])
-def test_norm_style_generator_matches_jax(style):
+NORM_STYLES = ("in", "gn", "nonorm")
+
+
+@pytest.fixture(scope="module")
+def norm_style_refs():
+    """Per style: the JAX G in eval and in train mode (one function), its
+    variables and inputs; each traced here in turn and compiled in a thread
+    of its own (``compile_async``) while the next one traces."""
+    out = {}
+    for style in NORM_STYLES:
+        jcfg = JCFG.replace(norm_style=style)
+        rng = np.random.RandomState(1)
+        z, label, feats = cond_inputs(rng, jcfg)
+        jg = jbiggan.Generator(jcfg)
+        variables = numpy_variables(jg, rng, jnp.asarray(z), jnp.asarray(label),
+                                    jnp.asarray(feats))
+
+        def both(v, z, label, feats, jg=jg):
+            return (jg.apply(v, z, label, feats, train=False),
+                    jg.apply(v, z, label, feats, train=True, mutable=["batch_stats", "sn"]))
+
+        args = (variables, z, label, feats)
+        out[style] = (compile_async(both, *args), args)
+    return out
+
+
+@pytest.mark.parametrize("style", NORM_STYLES)
+def test_norm_style_generator_matches_jax(norm_style_refs, style):
     """The cc_icgan G with ``norm_style`` in eval and in train mode (one JAX
     compile for both): images at atol 1e-4; after the train-mode forward the
     running statistics (``in``) and every SN state as JAX's.  The ``bn``
     style's G is held by the class-conditional test below and by
     ``test_torch_port_generator.py``."""
-    jcfg = JCFG.replace(norm_style=style)
-    cfg = port_cfg(jcfg)
-    rng = np.random.RandomState(1)
-    z, label, feats = cond_inputs(rng, jcfg)
-    jg = jbiggan.Generator(jcfg)
-    variables = numpy_variables(jg, rng, jnp.asarray(z), jnp.asarray(label), jnp.asarray(feats))
-
-    @cheap_jit
-    def both(v, z, label, feats):
-        return (jg.apply(v, z, label, feats, train=False),
-                jg.apply(v, z, label, feats, train=True, mutable=["batch_stats", "sn"]))
-    ref_eval, (ref_train, mut) = both(variables, z, label, feats)
+    cfg = port_cfg(JCFG.replace(norm_style=style))
+    compiling, (variables, z, label, feats) = norm_style_refs[style]
+    ref_eval, (ref_train, mut) = compiling.result()(variables, z, label, feats)
 
     g = _port_g(variables, cfg)
     bufs = {k for k in g.state_dict() if ".bn1." in k and not k.split(".")[-2] in ("gain", "bias")}
@@ -219,26 +262,40 @@ def test_norm_style_generator_matches_jax(style):
 
 # --- the class-conditional G and D ---------------------------------------------------
 
+@pytest.fixture(scope="module")
+def cond_refs():
+    """Per conditioning: JAX's G (eval) and D (eval and train) in one
+    function, its variables and inputs; traced in turn, compiled in threads
+    (``compile_async``)."""
+    out = {}
+    for cond in CONDS:
+        jcfg = JCFG.replace(**CONDS[cond])
+        rng = np.random.RandomState(2)
+        z, label, feats = cond_inputs(rng, jcfg)
+        x = rng.uniform(-1, 1, (MB, RES, RES, 3)).astype(np.float32)
+        jf = None if feats is None else jnp.asarray(feats)
+        jg, jd = jbiggan.Generator(jcfg), jbiggan.Discriminator(jcfg)
+        g_vars = numpy_variables(jg, rng, jnp.asarray(z), jnp.asarray(label), jf)
+        d_vars = numpy_variables(jd, rng, jnp.asarray(x), jnp.asarray(label), jf)
+
+        def run(gv, dv, z, label, feats, x, jg=jg, jd=jd):
+            return (jg.apply(gv, z, label, feats), jd.apply(dv, x, label, feats),
+                    jd.apply(dv, x, label, feats, train=True, mutable=["sn"]))
+
+        args = (g_vars, d_vars, z, label, jf, x)
+        out[cond] = (compile_async(run, *args), args, feats)
+    return out
+
+
 @pytest.mark.parametrize("cond", list(CONDS))
-def test_class_conditional_generator_and_discriminator_match_jax(cond):
+def test_class_conditional_generator_and_discriminator_match_jax(cond_refs, cond):
     """G (eval) and D (eval, and train with its SN updates) through the
     extended key maps: class only (D's ``embed`` of the top width) and
     class + instance (``embed`` and ``linear_feat`` of half of it each)."""
-    jcfg = JCFG.replace(**CONDS[cond])
-    cfg = port_cfg(jcfg)
-    rng = np.random.RandomState(2)
-    z, label, feats = cond_inputs(rng, jcfg)
-    x = rng.uniform(-1, 1, (MB, RES, RES, 3)).astype(np.float32)
-    jf = None if feats is None else jnp.asarray(feats)
-    jg, jd = jbiggan.Generator(jcfg), jbiggan.Discriminator(jcfg)
-    g_vars = numpy_variables(jg, rng, jnp.asarray(z), jnp.asarray(label), jf)
-    d_vars = numpy_variables(jd, rng, jnp.asarray(x), jnp.asarray(label), jf)
-
-    @cheap_jit
-    def run(gv, dv, z, label, feats, x):
-        return (jg.apply(gv, z, label, feats), jd.apply(dv, x, label, feats),
-                jd.apply(dv, x, label, feats, train=True, mutable=["sn"]))
-    ref_g, ref_d, (ref_dt, mut) = run(g_vars, d_vars, z, label, jf, x)
+    cfg = port_cfg(JCFG.replace(**CONDS[cond]))
+    compiling, args, feats = cond_refs[cond]
+    g_vars, d_vars, z, label, _, x = args
+    ref_g, ref_d, (ref_dt, mut) = compiling.result()(*args)
 
     g, d = _port_g(g_vars, cfg), _port_d(d_vars, cfg)
     top = cfg.d_arch["out_channels"][-1]

@@ -976,3 +976,96 @@ def test_lpips_card_matches_cpu_with_tf32_on():
     assert ((got - want).abs() <= 1e-4 * want.abs()).all(), (got, want)
     via_feats = (feats[:8] - feats[8:]).square().sum(1)
     assert ((via_feats - want).abs() <= 1e-4 * want.abs()).all()
+
+
+# --- int8 serving and the exported sampler ----------------------------------------
+
+@pytest.mark.parametrize("n,c,h,w,o,k,pad", [
+    (3, 6, 5, 7, 5, 3, 1),            # depth 54 and width 5 padded to multiples of 8
+    (1, 5, 3, 3, 3, 3, 1),            # 9 rows: under _int_mm's 17, padded
+    (2, 16, 8, 8, 24, 2, (1, 0, 0, 1)),   # an up2x phase kernel, asymmetric padding
+    (5, 32, 12, 12, 64, 1, 0),        # 1x1
+    (9, 24, 16, 16, 32, 3, 1),        # several chunks of the batch
+])
+def test_int8_conv_route_matches_plain_on_the_card(monkeypatch, n, c, h, w, o, k, pad):
+    """The card's route (im2col and ``torch._int_mm``) gives the plain
+    version's int32 sums bit for bit, padded rows, depth and width
+    included; a small ``CHUNK_BYTES`` splits the batch into chunks."""
+    from ic_gan_tpu_torch.ops import int8_conv
+
+    monkeypatch.setattr(int8_conv, "CHUNK_BYTES", 20000)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    xq = torch.randint(-127, 128, (n, c, h, w), generator=gen, device="cuda", dtype=torch.int8)
+    qk = torch.randint(-127, 128, (o, c, k, k), generator=gen, device="cuda", dtype=torch.int8)
+    got = int8_conv.conv2d_int8(xq, qk, pad)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, int8_conv.conv2d_int8_ref(xq, qk, pad))
+    assert torch.equal(got.cpu(), int8_conv.conv2d_int8(xq.cpu(), qk.cpu(), pad))
+
+
+def test_int8_generator_on_the_card_matches_cpu():
+    """One int8 G (calibrated once, its buffers copied to both devices),
+    f32 compute: the card's images within 1e-3 mean relative of the CPU's,
+    the bar of the CPU tests against JAX (the int32 sums are exact on both,
+    but the float parts round differently, and a value that lands on the
+    other side of a rounding edge moves its int8 code by one: a pixel may
+    move by 2e-2), and B1 launched once."""
+    from ic_gan_tpu_torch.io.quant import quantize_variables
+
+    cfg = BigGANConfig(resolution=32, G_ch=16, G_attn="16", dim_z=40, shared_dim_feat=32,
+                       instance_sz=64)
+    g = Generator(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    z = torch.randn((4, cfg.effective_dim_z), generator=gen)
+    feats = torch.randn((4, cfg.instance_sz), generator=gen)
+    quantize_variables(g, z, None, feats, skip_attention=False)
+    card = copy.deepcopy(g).cuda()
+    before = sagan_attention_fwd.launches
+    with torch.no_grad():
+        got = card(z.cuda(), None, feats.cuda()).cpu()
+        want = g(z, None, feats)
+    assert sagan_attention_fwd.launches == before + 1
+    assert ((got - want).abs().mean() / want.abs().mean()).item() <= 1e-3
+
+
+def test_exported_samplers_launch_the_kernels_on_the_card():
+    """A bf16 BigGAN G with attention and an int8 StyleGAN2 G exported on
+    the card and loaded back: their images the live samplers', and the
+    loaded programs launch B1 and B4 (as many as the live samplers)."""
+    from ic_gan_tpu_torch.io.deploy import export_sampler, load_exported_sampler
+    from ic_gan_tpu_torch.io.quant import quantize_stylegan2_variables
+
+    cfg = BigGANConfig(resolution=32, G_ch=16, G_attn="16", dim_z=40, shared_dim_feat=32,
+                       instance_sz=64, dtype=torch.bfloat16)
+    g = Generator(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    cast_params(g, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    z = torch.randn((4, cfg.effective_dim_z), generator=gen, device="cuda")
+    feats = torch.randn((4, cfg.instance_sz), generator=gen, device="cuda")
+    live = make_sampler(g, batch_size=4)
+    loaded = load_exported_sampler(export_sampler(g, 4))
+    before = sagan_attention_fwd.launches
+    got = loaded(z, feats=feats, device_output=True)
+    torch.cuda.synchronize()
+    assert sagan_attention_fwd.launches == before + 1
+    assert torch.equal(got, live(z, None, feats, device_output=True))
+
+    sg2 = SG2Generator(StyleGAN2Config(img_resolution=32, z_dim=16, c_dim=0, h_dim=24, w_dim=16,
+                                       channel_base=1024, channel_max=64, num_mapping_layers=2),
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+    z2 = torch.randn((2, 16), generator=gen, device="cuda")
+    h2 = torch.randn((2, 24), generator=gen, device="cuda")
+    quantize_stylegan2_variables(sg2, z2, None, h2, noise_mode="const")
+    live = make_sampler(sg2, batch_size=2, noise_mode="const")
+    loaded = load_exported_sampler(export_sampler(sg2, 2, noise_mode="const"))
+    counts = []
+    for fn in (live, loaded):
+        ba.reset_launches()
+        out = fn(z2, None, h2, device_output=True)
+        torch.cuda.synchronize()
+        counts.append(ba.bias_act_fwd.launches)
+        if fn is live:
+            want = out
+    assert counts[0] == counts[1] > 0
+    assert (out - want).abs().max().item() <= 1e-5

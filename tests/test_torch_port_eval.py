@@ -48,7 +48,7 @@ from ic_gan_tpu_torch.eval import pipeline as tpipe
 from ic_gan_tpu_torch.eval import prdc as tprdc
 from ic_gan_tpu_torch.models import inception as tinception
 from test_torch_port_biggan_loop import K, RES, _cli_config, _state_tensors, files  # noqa: F401
-from test_torch_port_classcond import _one_torch_thread  # noqa: F401
+from test_torch_port_classcond import _one_torch_thread, in_background  # noqa: F401
 
 h5py = pytest.importorskip("h5py")
 
@@ -374,13 +374,16 @@ def test_evaluate_generator_matches_jax_in_both_branches(evaluators):
 
     kw = dict(num_images=N_IMG, batch=BATCH, num_splits=4, prdc_ref_features=real,
               prdc_nearest_k=3, samples_per_class=SPC)
-    want = jpipe.evaluate_generator(sampler("nhwc"), JaxFirstFeatures(jev), ref_mu, ref_sigma,
-                                    stratified=strat, **kw)
+    jax_run = in_background(jpipe.evaluate_generator, sampler("nhwc"), JaxFirstFeatures(jev),
+                            ref_mu, ref_sigma, stratified=strat, **kw)
     replay = Replay(tev)
+    gots = {}
     for on_device in (True, False):
         replay.supports_device_output, replay.i = on_device, 0
-        got = tpipe.evaluate_generator(sampler("nchw"), replay, ref_mu, ref_sigma,
-                                       stratified=strat, **kw)
+        gots[on_device] = tpipe.evaluate_generator(sampler("nchw"), replay, ref_mu, ref_sigma,
+                                                   stratified=strat, **kw)
+    want = jax_run.result()
+    for on_device, got in gots.items():
         assert set(got) == set(want)
         for k in ("FID", "IS_mean", "IS_std", "FID_many"):
             assert _rel(got[k], want[k]) < 1e-3, (on_device, k, got[k], want[k])
@@ -402,10 +405,11 @@ def test_dataset_moments_and_feature_cache_match_jax(evaluators, files, tmp_path
     np.testing.assert_array_equal(tds._norm(raw), np.transpose(jds._norm(jds._get_images(
         np.arange(4))), (0, 3, 1, 2)))
     spc = np.array([150, 50, 10, 150, 50])
-    want = jpipe.compute_dataset_moments(jds, jev, batch=BATCH, max_items=BATCH,
-                                         samples_per_class=spc)
+    jax_run = in_background(jpipe.compute_dataset_moments, jds, jev, batch=BATCH,
+                            max_items=BATCH, samples_per_class=spc)
     got = tpipe.compute_dataset_moments(tds, tev, batch=BATCH, max_items=BATCH,
                                         samples_per_class=spc)
+    want = jax_run.result()
     assert set(got) == set(want) == {"", "many", "low", "few"}
     for k, (mu, sigma, is_) in want.items():
         np.testing.assert_allclose(got[k][0], mu, rtol=2e-3, atol=2e-4 * np.abs(mu).max())

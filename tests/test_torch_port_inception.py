@@ -25,7 +25,7 @@ from ic_gan_tpu.models import inception as jinception
 from ic_gan_tpu_torch.io.convert import inception_state_dict_from_jax
 from ic_gan_tpu_torch.models import inception as tinception
 from test_inception_graph import GOLDEN_PATH, synthetic_state_dict, torchvision_inception_v3_manifest
-from test_torch_port_classcond import _one_torch_thread, cheap_jit  # noqa: F401
+from test_torch_port_classcond import _one_torch_thread, cheap_jit, in_background  # noqa: F401
 
 DROPPED = ("AuxLogits", "num_batches_tracked")
 
@@ -86,14 +86,13 @@ def test_forward_matches_jax_f32_and_bf16(which, request):
     _, variables, nets = request.getfixturevalue(
         "weights" if which == "synthetic" else "random_weights")
     x = np.random.RandomState(7).uniform(-1.0, 1.0, (2, 32, 32, 3)).astype(np.float32)
-    ref = {}
-    for dtype in (jnp.float32, jnp.bfloat16):
-        pool, logits = _jax_apply(dtype)(variables, x)
-        ref[dtype] = np.asarray(pool), np.asarray(logits)
+    jax_side = in_background(lambda: {dtype: tuple(np.asarray(a) for a in _jax_apply(dtype)(
+        variables, x)) for dtype in (jnp.float32, jnp.bfloat16)})
     pool, logits = _port(nets[torch.float32], x)
+    pool16, _ = _port(nets[torch.bfloat16], x)
+    ref = jax_side.result()
     np.testing.assert_allclose(pool, ref[jnp.float32][0], atol=2e-4, rtol=2e-3)
     np.testing.assert_allclose(logits, ref[jnp.float32][1], atol=2e-3, rtol=2e-3)
-    pool16, _ = _port(nets[torch.bfloat16], x)
     scale = np.abs(pool).mean()
     for other in (pool, ref[jnp.bfloat16][0]):
         gap = np.abs(pool16 - other)

@@ -50,7 +50,7 @@ from ic_gan_tpu_torch.models import resnet as tresnet
 from ic_gan_tpu_torch.models import stylegan2 as tsg2
 from ic_gan_tpu_torch.train import trainer as ttrainer
 from test_torch_port_biggan_deep import _perturb, jax_variables
-from test_torch_port_classcond import _one_torch_thread, cheap_jit  # noqa: F401
+from test_torch_port_classcond import _one_torch_thread, cheap_jit, in_background  # noqa: F401
 from test_torch_port_sg2_import import tf_pickle  # noqa: F401
 
 h5py = pytest.importorskip("h5py")
@@ -140,13 +140,19 @@ def test_load_generator_from_pth_matches_jax(bundles, name):
     cfg = dict(flat, pth_dir=pth_dir, batch_size=2)
     sampler, model_cfg = tinf.load_model_inference(cfg, device="cpu")
     assert type(model_cfg).__name__ == ("BigGANDeepConfig" if name == "deep" else "BigGANConfig")
-    jg, jvars, jcfg = jinf.load_generator(dict(cfg))
-    assert type(jcfg).__name__ == type(model_cfg).__name__
     z, label, feats = _z_and_conditioning(model_cfg)
+
+    def jax_side():
+        jg, jvars, jcfg = jinf.load_generator(dict(cfg))
+        apply = cheap_jit(lambda v, z, lab, f: jg.apply(v, z, lab, f, train=False))
+        return jcfg, np.asarray(apply(jdeploy.fold_spectral_norm(jvars), jnp.asarray(z),
+                                      None if label is None else jnp.asarray(label),
+                                      jnp.asarray(feats)))
+
+    jax_run = in_background(jax_side)
     got = sampler(z, label, feats)                 # 3 images in batches of 2
-    apply = cheap_jit(lambda v, z, lab, f: jg.apply(v, z, lab, f, train=False))
-    want = np.asarray(apply(jdeploy.fold_spectral_norm(jvars), jnp.asarray(z),
-                            None if label is None else jnp.asarray(label), jnp.asarray(feats)))
+    jcfg, want = jax_run.result()
+    assert type(jcfg).__name__ == type(model_cfg).__name__
     assert got.shape == want.shape == (3, 32, 32, 3) and want.std() > 1e-2
     assert np.abs(got - want).max() <= IMG_ATOL
     with torch.no_grad():
@@ -259,8 +265,11 @@ def test_load_generator_from_stylegan2_pickle(tf_pickle, tmp_path):  # noqa: F81
     assert np.abs(got - want).max() <= IMG_ATOL
     with pytest.raises(ValueError, match="network_pkl"):
         tinf.load_generator(dict(backbone="stylegan2"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tinf.load_model_inference(dict(flat, quantize_serving=True), device="cpu")
+    # int8 serving (io/quant.py) loads the same pickle by the same convention.
+    qsampler, _ = tinf.load_model_inference(dict(flat, quantize_serving=True), device="cpu")
+    assert any(k.endswith(".qkernel") for k in qsampler.module.state_dict())
+    qgot = qsampler(z)
+    assert 0 < np.abs(qgot - want).mean() / np.abs(want).mean() < 0.15
 
 
 # --- conditioning draws ----------------------------------------------------------

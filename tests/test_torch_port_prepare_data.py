@@ -55,7 +55,7 @@ from ic_gan_tpu_torch.io import convert
 from ic_gan_tpu_torch.io.lmdb_reader import LMDBReader as TLMDBReader
 from ic_gan_tpu_torch.models import vgg as tvgg
 from test_archive_readers import _make_cifar, _make_mnist, _make_zip, _png_bytes, build_lmdb
-from test_torch_port_classcond import _one_torch_thread, cheap_jit  # noqa: F401
+from test_torch_port_classcond import _one_torch_thread, cheap_jit, in_background  # noqa: F401
 from test_torch_port_inference import _random_resnet
 
 h5py = pytest.importorskip("h5py")
@@ -352,10 +352,26 @@ def test_prepare_data_main_is_read_alike_by_both_packages(folder, tmp_path):
     argv = ["--set", f"image_root=\"{folder}\"", f"out_path=\"{out}\"", f"resolution={RES}",
             f"k_nn={K_NN}", f"kmeans_subsampled={K_MEANS}",
             f"feature_extractor_weights=\"{pth}\"", "--device", "cpu"]
-    tprep.main(argv)
-    names = jdata.hdf5_filenames(RES, "imagenet", feature_extractor="selfsupervised", k_nn=K_NN)
     jxy = tmp_path / "jax_xy.hdf5"
-    jprep.build_xy_hdf5(jprep.iter_image_folder(str(folder), RES), str(jxy))
+
+    def jax_side():
+        """JAX's xy file and its ResNet-50 bank of those images, with and
+        without the flip: run while the port's ``main`` runs."""
+        jprep.build_xy_hdf5(jprep.iter_image_folder(str(folder), RES), str(jxy))
+        with h5py.File(jxy, "r") as j:
+            jimgs = j["imgs"][:]
+        sd = torch.load(pth, weights_only=True)["state_dict"]
+        variables = jresnet.load_torch_resnet50({k: v.numpy() for k, v in sd.items()})
+        jnet = jresnet.ResNet50()
+        fwd = cheap_jit(lambda v, x: jnet.apply(v, jresnet.preprocess(x))[0])
+        x = np.transpose(jimgs, (0, 2, 3, 1)).astype(np.float32) / 255.0
+        return {key: np.asarray(fwd(variables, jnp.asarray(np.ascontiguousarray(xs))))
+                for key, xs in (("feats", x), ("feats_hflip", x[:, :, ::-1]))}
+
+    jax_run = in_background(jax_side)
+    tprep.main(argv)
+    wants = jax_run.result()
+    names = jdata.hdf5_filenames(RES, "imagenet", feature_extractor="selfsupervised", k_nn=K_NN)
     with h5py.File(out / names["xy"], "r") as t, h5py.File(jxy, "r") as j:
         for key in ("imgs", "labels"):
             assert t[key].dtype == j[key].dtype and t[key].chunks == j[key].chunks
@@ -363,13 +379,7 @@ def test_prepare_data_main_is_read_alike_by_both_packages(folder, tmp_path):
         imgs = t["imgs"][:]
     with h5py.File(out / names["feats"], "r") as f:
         banks = {k: f[k][:] for k in ("feats", "feats_hflip")}
-    sd = torch.load(pth, weights_only=True)["state_dict"]
-    variables = jresnet.load_torch_resnet50({k: v.numpy() for k, v in sd.items()})
-    jnet = jresnet.ResNet50()
-    fwd = cheap_jit(lambda v, x: jnet.apply(v, jresnet.preprocess(x))[0])
-    x = np.transpose(imgs, (0, 2, 3, 1)).astype(np.float32) / 255.0
-    for key, xs in (("feats", x), ("feats_hflip", x[:, :, ::-1])):
-        want = np.asarray(fwd(variables, jnp.asarray(np.ascontiguousarray(xs))))
+    for key, want in wants.items():
         assert banks[key].shape == want.shape == (6, 2048)
         assert np.abs(banks[key] - want).max() <= 1e-4 * np.abs(want).max(), key
     net = tprep.load_feature_extractor(str(pth), device="cpu")

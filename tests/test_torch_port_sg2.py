@@ -23,7 +23,7 @@ from ic_gan_tpu_torch.io.convert import (
     stylegan2_variables_from_state_dict,
 )
 from ic_gan_tpu_torch.models import stylegan2 as tsg2
-from test_torch_port_classcond import cheap_jit
+from test_torch_port_classcond import cheap_jit, compile_async
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -100,8 +100,15 @@ def nets(request):
     g.load_state_dict(stylegan2_state_dict_from_jax(g_vars))
     d = skip_init(tsg2.Discriminator, tcfg)
     d.load_state_dict(stylegan2_state_dict_from_jax(d_vars))
+    # JAX's forwards, each compiled in a thread of its own while the next
+    # traces and the tests run the port's side (``compile_async``).
+    modes = ("const", "none") if request.param == "f32" else ("const",)
+    jax_fwd = {("g", mode): compile_async(lambda v, mode=mode: jg.apply(
+        v, jnp.asarray(z), c, jnp.asarray(h), noise_mode=mode), g_vars) for mode in modes}
+    jax_fwd["d"] = compile_async(lambda v: jd.apply(v, jnp.asarray(x), c, jnp.asarray(h)),
+                                 d_vars)
     return dict(case=request.param, jg=jg, jd=jd, g_vars=g_vars, d_vars=d_vars, g=g, d=d,
-                z=z, h=h, c=c, x=x)
+                z=z, h=h, c=c, x=x, jax_fwd=jax_fwd)
 
 
 def _t(a):
@@ -123,9 +130,7 @@ def _bar(case, ref):
 def test_generator_forward_matches_jax(nets):
     """noise_mode "const" with nonzero strengths, and (f32 case) "none"."""
     for mode in ("const", "none") if nets["case"] == "f32" else ("const",):
-        ref = cheap_jit(lambda v: nets["jg"].apply(
-            v, jnp.asarray(nets["z"]), nets["c"], jnp.asarray(nets["h"]),
-            noise_mode=mode))(nets["g_vars"])
+        ref = nets["jax_fwd"][("g", mode)].result()(nets["g_vars"])
         with torch.no_grad():
             got = nets["g"](_t(nets["z"]), _t(nets["c"]), _t(nets["h"]), noise_mode=mode)
         assert got.shape == (N, 3, 32, 32) and got.dtype == torch.float32
@@ -134,8 +139,7 @@ def test_generator_forward_matches_jax(nets):
 
 
 def test_discriminator_forward_matches_jax(nets):
-    ref = cheap_jit(lambda v: nets["jd"].apply(
-        v, jnp.asarray(nets["x"]), nets["c"], jnp.asarray(nets["h"])))(nets["d_vars"])
+    ref = nets["jax_fwd"]["d"].result()(nets["d_vars"])
     with torch.no_grad():
         got = nets["d"](_nchw(nets["x"]), _t(nets["c"]), _t(nets["h"]))
     assert got.shape == (N, 1) and got.dtype == torch.float32

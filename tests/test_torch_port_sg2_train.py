@@ -52,6 +52,7 @@ from ic_gan_tpu_torch.io.convert import (
 )
 from ic_gan_tpu_torch.models import stylegan2 as tsg2
 from ic_gan_tpu_torch.train import stylegan2_step as tstep
+from test_torch_port_classcond import compile_async
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -100,8 +101,9 @@ def setup():
 
 
 def _jax_step(setup, do_reg, rng, ada):
-    """The JAX step in float64, and the draws it makes (``stylegan2_step.py:
-    188-199, 216-222, 250-252, 285``), for the port."""
+    """The JAX step in float64, compiling (a future of the executable, and
+    its arguments), and the draws it makes (``stylegan2_step.py: 188-199,
+    216-222, 250-252, 285``), for the port."""
     with jax.enable_x64(True):
         jcfg = jsg2.StyleGAN2Config(**CFG)
         jg, jd = jsg2.Generator(jcfg), jsg2.Discriminator(jcfg)
@@ -116,13 +118,13 @@ def _jax_step(setup, do_reg, rng, ada):
             with jax.ensure_compile_time_eval():
                 return pipe(key, img, p, debug_percentile=DP)
 
-        step = jax.jit(jstep.make_sg2_train_step(jg, jd, tcfg, CFG["z_dim"], do_pl=do_reg,
-                                                 do_r1=do_reg, augment_fn=aug if ada else None,
-                                                 debug_grads=True))
+        step = jstep.make_sg2_train_step(jg, jd, tcfg, CFG["z_dim"], do_pl=do_reg,
+                                         do_r1=do_reg, augment_fn=aug if ada else None,
+                                         debug_grads=True)
         args = (state, {k: jnp.asarray(v) for k, v in setup["batch"].items()}, rng)
-        # XLA's cheap backend: the arithmetic is the same, the compile is shorter.
-        new, metrics = step.lower(*args).compile(compiler_options={
-            "xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})(*args)
+        # XLA's cheap backend: the arithmetic is the same, the compile is
+        # shorter; it runs while the caller runs the port's step.
+        compiling = compile_async(step, *args)
         rngs = jax.random.split(rng, 8)
         num_ws = jsg2.SynthesisNetwork(CFG["w_dim"], RES, channel_base=512,
                                        channel_max=32).num_ws
@@ -139,7 +141,7 @@ def _jax_step(setup, do_reg, rng, ada):
             noise = jax.random.normal(rngs[5], (N // 2, RES, RES, 3))
             draws["pl_noise"] = np.transpose(np.asarray(noise), (0, 3, 1, 2))
         draws = {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
-        return _f64(new), _f64(metrics), draws
+        return compiling, args, draws
 
 
 def _port_step(setup, do_reg, draws, ada):
@@ -169,9 +171,13 @@ def _close(got, ref, what):
 
 
 def check_step(setup, do_reg, ada):
-    """One step of each package from the same start; every comparison."""
-    jnew, jm, draws = _jax_step(setup, do_reg, jax.random.PRNGKey(7), ada)
+    """One step of each package from the same start; every comparison.  The
+    JAX step compiles while the port's step runs."""
+    compiling, args, draws = _jax_step(setup, do_reg, jax.random.PRNGKey(7), ada)
     state, tm = _port_step(setup, do_reg, draws, ada)
+    with jax.enable_x64(True):
+        jnew, jm = compiling.result()(*args)
+    jnew, jm = _f64(jnew), _f64(jm)
 
     keys = ["G_loss", "fake_scores", "D_loss", "real_scores", "real_signs"]
     keys += ["pl_penalty", "r1_penalty"] if do_reg else []

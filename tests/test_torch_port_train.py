@@ -7,7 +7,8 @@ port's ``state_dict``s.  The same numpy batch and the z that the JAX step draws 
 through ``make_train_step`` of both packages (float64 interior, see
 ``GRAD_REL``); the losses, raw gradients, spectral-norm and batch-norm
 state, EMA and Adam-updated parameters after one step are compared.  Two
-JAX step compiles in all.
+JAX step compiles in all, each in a thread of its own while the next case
+traces (``jax_steps``).
 """
 
 import numpy as np
@@ -41,7 +42,7 @@ from ic_gan_tpu_torch.ops import spectral_norm as tsn
 from ic_gan_tpu_torch.train import losses as tlosses
 from ic_gan_tpu_torch.train import state as tstate
 from ic_gan_tpu_torch.train import step as tstep
-from test_torch_port_classcond import _one_torch_thread, cheap_jit  # noqa: F401
+from test_torch_port_classcond import _one_torch_thread, cheap_jit, compile_async  # noqa: F401
 
 RES, MB = 32, 4
 JCFG = jbiggan.BigGANConfig(resolution=RES, G_ch=16, D_ch=16, G_attn="16", D_attn="16",
@@ -331,21 +332,41 @@ def _max_err(got, ref):
     return (got.detach() - ref).abs().max().item()
 
 
+@pytest.fixture(scope="module")
+def jax_steps(models):
+    """Each case's JAX step (XLA's default settings, float64), traced here
+    one after the other and compiled in a thread of its own
+    (``compile_async``), so that one case compiles while the next traces.
+    {case: (the compile's future, its state, batch and key)}."""
+    batch = {k: v.astype(np.float64) for k, v in models["batch"].items()}
+    steps = {}
+    with jax.enable_x64(True):
+        jcfg = JCFG.replace(dtype=jnp.float64)
+        jg, jd = jbiggan.Generator(jcfg), jbiggan.Discriminator(jcfg)
+        to64 = lambda tree: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)  # noqa: E731
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        rng = jax.random.PRNGKey(7)
+        for case in CASES:
+            jt = jstep.TrainConfig(**TCFG, **CASES[case])
+            jstate_ = jstate.GANTrainState.create(to64(models["g_vars"]),
+                                                  to64(models["d_vars"]),
+                                                  jt.g_optimizer(), jt.d_optimizer())
+            fn = jstep.make_train_step(jg.apply, jd.apply, jt, JCFG.effective_dim_z,
+                                       debug_grads=True)
+            steps[case] = (compile_async(fn, jstate_, jbatch, rng, cheap=False),
+                           jstate_, jbatch, rng)
+    return steps
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_train_step_matches_jax(models, case):
+def test_train_step_matches_jax(models, jax_steps, case):
     tkw = {**TCFG, **CASES[case]}
     jt, tt = jstep.TrainConfig(**tkw), tstep.TrainConfig(**tkw)
     dim_z = JCFG.effective_dim_z
     batch = {k: v.astype(np.float64) for k, v in models["batch"].items()}
+    compiling, jstate_, jbatch, rng = jax_steps[case]
     with jax.enable_x64(True):
-        jcfg = JCFG.replace(dtype=jnp.float64)
-        jg, jd = jbiggan.Generator(jcfg), jbiggan.Discriminator(jcfg)
-        to64 = lambda tree: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
-        jstate_ = jstate.GANTrainState.create(to64(models["g_vars"]), to64(models["d_vars"]),
-                                              jt.g_optimizer(), jt.d_optimizer())
-        jfn = jax.jit(jstep.make_train_step(jg.apply, jd.apply, jt, dim_z, debug_grads=True))
-        rng = jax.random.PRNGKey(7)
-        jnew, jm = jfn(jstate_, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+        jnew, jm = compiling.result()(jstate_, jbatch, rng)
         zs = _jax_zs(rng, jt, MB, dim_z)
         jnew, jm = _f64(jnew), _f64(jm)
 

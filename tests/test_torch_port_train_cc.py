@@ -32,7 +32,8 @@ from ic_gan_tpu_torch.models import biggan as tbiggan
 from ic_gan_tpu_torch.train import state as tstate
 from ic_gan_tpu_torch.train import step as tstep
 from test_torch_port_augment import jax_draws
-from test_torch_port_classcond import _one_torch_thread, numpy_variables, port_cfg  # noqa: F401
+from test_torch_port_classcond import (  # noqa: F401
+    _one_torch_thread, compile_async, numpy_variables, port_cfg)
 from test_torch_port_train import GRAD_ABS, GRAD_REL, STATE_REL, TCFG, _f64, _max_err, _nchw
 
 RES, MB, NC = 32, 4, 10
@@ -91,13 +92,14 @@ def test_cc_icgan_diffaugment_step_matches_jax():
             lambda a: jnp.asarray(a, jnp.float64), tree)
         jstate_ = jstate.GANTrainState.create(to64(g_vars), to64(d_vars),
                                               jt.g_optimizer(), jt.d_optimizer())
-        jfn = jax.jit(jstep.make_train_step(jg.apply, jd.apply, jt, dim_z, debug_grads=True))
         key = jax.random.PRNGKey(7)
         jbatch = {k: jnp.asarray(v, jnp.int32 if "label" in k else jnp.float64)
                   for k, v in batch.items()}
-        jnew, jm = jfn(jstate_, jbatch, key)
+        # Compiled while the port's step runs below.
+        compiling = compile_async(
+            jstep.make_train_step(jg.apply, jd.apply, jt, dim_z, debug_grads=True),
+            jstate_, jbatch, key, cheap=False)
         zs, augs = _jax_draws(key, jt)
-        jnew, jm = _f64(jnew), _f64(jm)
 
     cfg = port_cfg(JCFG, dtype=torch.float64)
     nets = {}
@@ -116,6 +118,9 @@ def test_cc_icgan_diffaugment_step_matches_jax():
         state, tbatch, zs=zs, aug_draws=augs)
     assert state.step == 1 and len(augs[0]) == 5 and augs[0][0].dtype == torch.float64
     assert augs[-1][0].dtype == torch.float32
+    with jax.enable_x64(True):
+        jnew, jm = compiling.result()(jstate_, jbatch, key)
+    jnew, jm = _f64(jnew), _f64(jm)
 
     for k in ("D_loss_real", "D_loss_fake", "G_loss"):
         np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=1e-6, err_msg=k)
