@@ -122,14 +122,35 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    bit, timed against the bf16 cuDNN conv; then the bf16 and int8 IC-GAN G,
    the deep G and the int8 StyleGAN2 G exported (``export_sampler``) and
    loaded back: MiB, seconds, img/s and max|Δ| against the live sampler, and
-   the kernels launched inside the loaded program.
+   the kernels launched inside the loaded program;
+19. the remaining CLIs and the pretrained-weight paths: ``cli/visualize.py``
+   on phase 5's G from a ``.pth`` bundle (an 8 × 8 sample sheet from stored
+   instances, the three interpolation sheets) and on phase 12's StyleGAN2 G
+   (style_mixing.py's seed grid, a random sheet of 64), each against direct
+   sampler calls bit for bit; ``project`` on phase 12's G toward one of its
+   images for 200 steps (upstream 1,000) with LPIPS (VGG16 from a seed): ms a
+   step, the loss,
+   B4 forward and backward launches a step; CLIP ViT-B/32 from a seed over
+   phase 5's G folded in f32, the search at the colab's population and
+   augmentations as CMA-ES + terminal Adam and as Adam: ms and B1/B2
+   launches an iteration, the tokenizer on a synthetic BPE table; a synthetic
+   TFHub BigGAN-256 dump (attention at 128²) through ``load_tfhub_generator``
+   behind the bf16 sampler at batch 128 (img/s, peak memory, B1 a batch,
+   phase 6's parity) and ``cli/convert_tfhub.py``; a TF1 GraphDef over every
+   op ``TFGraphExecutor`` handles through ``OfficialTF1Evaluator`` and
+   ``cli/official_eval.py`` over 1,024 of phase 5's images (img/s, the
+   ``fid_a``/``fid_b`` path, the card against the CPU executor); then
+   ``plot_logs``' series of phases 12 and 13.  Phases 3 and 4 hold B1 at
+   the TFHub shape and B1 and B2 in f32 at the search's, and time them at
+   full N.
 
 ``--profile`` adds device-time breakdowns of one sampler batch, one BigGAN
 train step, one StyleGAN2 main and reg step, one eval batch (G and
 Inception, and Inception alone, in each mode), one BigGAN-deep sampler
 batch and one BigGAN-deep train step, one bf16 and one int8 IC-GAN sampler
-batch, one float and one int8 StyleGAN2 sampler batch and one batch of the
-loaded int8 StyleGAN2 program, with the kernels launched
+batch, one float and one int8 StyleGAN2 sampler batch, one batch of the
+loaded int8 StyleGAN2 program, one TFHub sampler batch, 20 projector steps
+and one CLIP-guided Adam iteration, with the kernels launched
 inside ``BiasAct.backward`` (its ``bias_act_bwd`` range) summed apart.  The
 last three lines of standard output are the card (name, power limit), one
 JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
@@ -156,6 +177,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.utils import skip_init
 
+from ic_gan_tpu_torch.cli import plot_logs
 from ic_gan_tpu_torch.data.ada import AugmentPipe
 from ic_gan_tpu_torch.data.augment import augment_draws
 from ic_gan_tpu_torch.cli import train_stylegan2 as sg2_cli
@@ -163,6 +185,8 @@ from ic_gan_tpu_torch.data.datasets import Batch
 from ic_gan_tpu_torch.eval import pipeline as eval_pipeline
 from ic_gan_tpu_torch.eval.fid import (
     fid_is_device,
+    frechet_distance,
+    full_f32,
     full_f32_matmul,
     inception_score,
     trace_sqrtm_product,
@@ -217,7 +241,20 @@ ATTN_CASES = [
     ("ragged bf16", (4, 1000, 250, 48, 192), torch.bfloat16, 3e-2),
     ("ragged f32", (4, 1000, 250, 48, 192), torch.float32, 2e-5),
     ("narrow ragged f32", (3, 77, 19, 8, 16), torch.float32, 2e-5),
+    # Phase 19's new shapes at N 2: the TFHub BigGAN-256's attention at 128²
+    # (its plain version holds (N, 16384, 4096) f32 logits, 256 MiB a
+    # sample), and the CLIP-guided search's f32 G.
+    ("tfhub 128^2 bf16", (2, 16384, 4096, 24, 96), torch.bfloat16, 3e-2),
+    ("search f32", (2, 4096, 1024, 48, 192), torch.float32, 2e-5),
 ]
+# Phase 19's shapes at full N: the TFHub sampler at batch 128 (bf16, no
+# log-sum-exp), the search's population of 50 in f32 (the forward without
+# the log-sum-exp as its loss evaluation calls it, the backward as its
+# gradient modes do).
+TFHUB_ATTN = (128, 16384, 4096, 24, 96)
+SEARCH_ATTN = (50, 4096, 1024, 48, 192)
+PLAIN_CHUNK = 16     # the plain version over N in chunks: (128, 16384, 4096) f32 is 32 GiB
+SHORT = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 # The training path's attention shapes at microbatch 32: G at 64², and D's
 # block 1 (192 channels) at 64², where D sees fake and real together (N 64).
@@ -232,6 +269,7 @@ BWD_CASES = [
     ("D", TRAIN_D_ATTN),
     ("ragged", (4, 1000, 250, 48, 192)),
     ("narrow ragged", (3, 77, 19, 8, 16)),
+    ("search", (2, 4096, 1024, 48, 192)),
 ]
 BWD_F32_ATOL = 1e-4
 BWD_BF16_TOL = dict(atol=5e-2, rtol=2e-2)
@@ -770,42 +808,51 @@ def sdpa_bwd_ms(args) -> float:
     return cuda_ms(fwd_bwd) - t_fwd
 
 
-def time_fwd(label, shape, with_lse) -> dict:
-    """The forward in bf16 at ``shape`` (with the log-sum-exp as training
-    calls it, or without as a sampler does): kernel, plain version, SDPA
-    (``scale=1.0``) and the bound."""
-    a = attention_inputs(shape, torch.bfloat16)
+def time_fwd(label, shape, with_lse, dtype=torch.bfloat16, plain_chunk=None) -> dict:
+    """The forward at ``shape`` in ``dtype`` (with the log-sum-exp as
+    training calls it, or without as a sampler does): kernel, plain version
+    (over N in chunks of ``plain_chunk`` where it cannot hold all of N),
+    SDPA (``scale=1.0``, one head) and the bound."""
+    a = attention_inputs(shape, dtype)
     heads = [t.unsqueeze(1) for t in a]  # one head: SDPA's fused backends take 4-D only
+
+    def plain():
+        step = plain_chunk or shape[0]
+        for i in range(0, shape[0], step):
+            sagan_attention_ref(*(t[i:i + step] for t in a), return_lse=with_lse)
+
     ts = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*a, return_lse=with_lse)),
-              plain_ms=cuda_ms(lambda: sagan_attention_ref(*a, return_lse=with_lse)),
+              plain_ms=cuda_ms(plain, reps=3 if plain_chunk else 5, warmup=1 if plain_chunk else 2),
               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0)))
-    ts["bound_ms"], ts["bound_by"] = attention_bound_ms(shape, torch.bfloat16)
+    ts["bound_ms"], ts["bound_by"] = attention_bound_ms(shape, dtype)
     rates(ts, attention_flops(shape))
-    log_card("attention bf16 {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+    chunked = f" (in chunks of {plain_chunk} samples)" if plain_chunk else ""
+    log_card("attention {} {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}{}  "
              "library_ms {library_ms:.4f} (SDPA, 4-D)  bound_ms {bound_ms:.4f} ({bound_by})  "
-             "{tflops:.1f} TFLOP/s, {of_bound:.3f} of bound".format(label, shape, **ts))
+             "{tflops:.1f} TFLOP/s, {of_bound:.3f} of bound".format(
+                 SHORT[dtype], label, shape, chunked, **ts))
     del a, heads
     torch.cuda.empty_cache()
     return ts
 
 
-def time_bwd(label, shape) -> dict:
-    """The backward in bf16 at ``shape``: kernel, plain version of the same
-    contract (with the forward's log-sum-exp), the library's backward and
-    the bound."""
-    args = attention_inputs(shape, torch.bfloat16, with_do=True)
+def time_bwd(label, shape, dtype=torch.bfloat16) -> dict:
+    """The backward at ``shape`` in ``dtype``: kernel, plain version of the
+    same contract (with the forward's log-sum-exp), the library's backward
+    and the bound."""
+    args = attention_inputs(shape, dtype, with_do=True)
     _, lse = sagan_attention_fwd(*args[:3], return_lse=True)
     t = dict(kernel_ms=cuda_ms(lambda: sagan_attention_bwd(*args, lse)),
              plain_ms=cuda_ms(lambda: sagan_attention_bwd_ref(*args, lse=lse),
                               reps=3, warmup=1))
     torch.cuda.empty_cache()
     t["library_ms"] = sdpa_bwd_ms(args)
-    t["bound_ms"], t["bound_by"] = attention_bwd_bound_ms(shape, torch.bfloat16)
+    t["bound_ms"], t["bound_by"] = attention_bwd_bound_ms(shape, dtype)
     rates(t, attention_bwd_flops(shape))
-    log_card("attention bwd bf16 {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
+    log_card("attention bwd {} {} {}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  "
              "library_ms {library_ms:.4f} (SDPA fwd+bwd less fwd)  bound_ms {bound_ms:.4f} "
              "({bound_by})  {tflops:.1f} TFLOP/s, {of_bound:.3f} of bound".format(
-                 label, shape, **t))
+                 SHORT[dtype], label, shape, **t))
     del args, lse
     torch.cuda.empty_cache()
     return t
@@ -817,6 +864,8 @@ def phase_timings() -> dict:
     it); f32 at the sampler's shape."""
     t = {label: time_fwd(label, shape, with_lse) for label, shape, with_lse in (
         ("sampler", MAIN_ATTN, False), ("G", TRAIN_G_ATTN, True), ("D", TRAIN_D_ATTN, True))}
+    t["tfhub sampler"] = time_fwd("tfhub sampler", TFHUB_ATTN, False, plain_chunk=PLAIN_CHUNK)
+    t["search f32"] = time_fwd("search", SEARCH_ATTN, False, dtype=torch.float32)
     args32 = attention_inputs(MAIN_ATTN, torch.float32)
     f32 = dict(kernel_ms=cuda_ms(lambda: sagan_attention_fwd(*args32)),
                plain_ms=cuda_ms(lambda: sagan_attention_ref(*args32)))
@@ -827,9 +876,11 @@ def phase_timings() -> dict:
 
 
 def phase_bwd_timings() -> dict:
-    """The backward at the training shapes, bf16."""
-    return {label: time_bwd(label, shape) for label, shape in (("G", TRAIN_G_ATTN),
-                                                                ("D", TRAIN_D_ATTN))}
+    """The backward at the training shapes, bf16, and at the search's in f32."""
+    t = {label: time_bwd(label, shape) for label, shape in (("G", TRAIN_G_ATTN),
+                                                             ("D", TRAIN_D_ATTN))}
+    t["search f32"] = time_bwd("search", SEARCH_ATTN, dtype=torch.float32)
+    return t
 
 
 def set_gamma(*nets):
@@ -2063,6 +2114,7 @@ def phase_sg2_loop(device) -> dict:
     if not bool((dev_ <= BF16_TOL["atol"] + BF16_TOL["rtol"] * direct.abs()).all()):
         raise AssertionError(f"sg2 sampler: max|sampler - direct| {dev_.max().item():.3e}")
     same_batch = torch.equal(got[:16], direct[:16])
+    logs = plot_logs.stylegan2_series(tr.run_dir)         # phase 19 prints them
     shutil.rmtree(SG2_LOOP_DIR, ignore_errors=True)
 
     # A tick's time holds the snapshot of the tick before it (snapshot_ticks
@@ -2096,7 +2148,7 @@ def phase_sg2_loop(device) -> dict:
         + ", ".join(f"{1e3 * t:.0f}" for t in best_saves) + f" ms); launches {eval_launches}")
     return dict(launches=launches, by_variant=by_variant, ticks=ticks, net_s_per_kimg=net,
                 snapshot_mib=size / 2 ** 20, save_ms=1e3 * statistics.median(saves),
-                load_ms=1e3 * load_s, eval_s=[e["s"] for e in evals])
+                load_ms=1e3 * load_s, eval_s=[e["s"] for e in evals], logs=logs)
 
 
 class BigGANCardDataset:
@@ -2310,6 +2362,12 @@ def phase_biggan_loop(device) -> dict:
     del g_ema, sampler
     sheets = [n for n in os.listdir(os.path.join(lcfg.logs_root, "biggan_loop"))
               if n.startswith("fixed_samples")]
+    log_dir = os.path.join(lcfg.logs_root, "biggan_loop")    # phase 19 prints its series
+    rows = plot_logs.read_jsonl(plot_logs.find_train_jsonl(log_dir))
+    logs = dict(plot_logs.inception_series(log_dir), **{
+        k: plot_logs.series_from_jsonl(rows, k)[1] for k in ("G_loss", "D_loss_real",
+                                                             "D_loss_fake")})
+    logs["itr"] = plot_logs.series_from_jsonl(rows, "G_loss")[0]
     shutil.rmtree(BIGGAN_LOOP_DIR, ignore_errors=True)
 
     per_step_imgs = TRAIN_MB * tcfg.num_D_steps * tcfg.num_D_accumulations
@@ -2338,7 +2396,7 @@ def phase_biggan_loop(device) -> dict:
         f"{BF16_TOL['atol']} + rtol {BF16_TOL['rtol']}); B1 launches {sampler_b1}")
     return dict(launches=launches, per_step=per_step[0], epochs=epochs,
                 snapshot_mib=size / 2 ** 20, save_ms=1e3 * statistics.median(saves),
-                load_ms=1e3 * load_s, eval_s=evals[0]["s"])
+                load_ms=1e3 * load_s, eval_s=evals[0]["s"], logs=logs)
 
 
 # --- the eval path -------------------------------------------------------------------
@@ -3871,6 +3929,646 @@ def phase_int8_and_export(device, main_ips, deep_unfolded, profile=False) -> dic
     return out
 
 
+
+# --- the remaining CLIs and the pretrained-weight paths (phase 19) ------------------------
+# The sheets of cli/visualize.py at upstream's sizes (an 8 × 8 sample sheet,
+# interpolation sheets of 4 rows of 8 midpoints, style mixing over
+# style_mixing.py's seeds, a random sheet of 64) on phase 5's IC-GAN G and
+# phase 12's StyleGAN2 G; the projector on phase 12's G (10,000 w
+# samples); CLIP ViT-B/32 from a seed over phase 5's G in
+# f32 with the colab's population (50) and augmentations (64); a synthetic
+# TFHub BigGAN-256 dump (ch 96, dim_z 140, attention at 128²) behind the
+# sampler at batch 128; a TF1 GraphDef with the official fetch names over
+# 1,024 images.  Cut to keep the phase near 90 s: the projector's steps and
+# the search's iterations (upstream 100 and 100).
+APPS_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_apps")
+SHEET_ROWS, SHEET_COLS = 8, 8
+INTERP_ROWS, INTERP_MIDPOINTS = 4, 8
+VIS_BATCH = 8
+MIX_SEEDS = dict(row_seeds="85,100,75,458,1500", col_seeds="55,821,1789,293", col_styles="0-6")
+RANDOM_SHEET, SG2_VIS_BATCH = 64, 16
+PROJECT_STEPS, PROJECT_W_AVG = 200, 10000
+CLIP_POP, CLIP_AUGS = 50, 64
+CLIP_CMA_ITERS, CLIP_TERMINAL_ITERS, CLIP_ADAM_ITERS = 3, 2, 2
+TFHUB_RES = 256
+TF1_IMAGES, TF1_BATCH, TF1_CHECK_IMAGES, TF1_REL = 1024, 100, 4, 1e-3
+PHASE19_CUTS = (
+    f"projector: {PROJECT_STEPS} of upstream's 1,000 steps",
+    f"CLIP-guided search: CMA-ES + terminal Adam for {CLIP_CMA_ITERS} + {CLIP_TERMINAL_ITERS} "
+    f"iterations and Adam for {CLIP_ADAM_ITERS} (the colab's 100 + 100)",
+    "CLIP, the TFHub dump and the TF1 graph: random weights from a seed (no published "
+    "file is in the repository)",
+    "TF1 graph: a 2048-wide stack of 8 convolutions over the official names and ops, not "
+    "the 2015 Inception's 94",
+    "TFHub dump: an .npz of the dump's names (the card's machine has no h5py)",
+)
+
+
+def _check_equal(name, got, want):
+    if not torch.equal(torch.as_tensor(got), torch.as_tensor(want)):
+        d = (torch.as_tensor(got).float() - torch.as_tensor(want).float()).abs().max().item()
+        raise AssertionError(f"{name}: not bit for bit against direct calls (max|Δ| {d:.3e})")
+
+
+def _png_equal(name, path, images, nrow):
+    """The CLI's PNG against ``save_image_grid`` of the direct images."""
+    from PIL import Image
+
+    from ic_gan_tpu_torch.cli.inference import save_image_grid
+
+    direct = os.path.join(APPS_DIR, "direct.png")
+    save_image_grid(np.asarray(images), direct, nrow=nrow)
+    if not np.array_equal(np.asarray(Image.open(path)), np.asarray(Image.open(direct))):
+        raise AssertionError(f"{name}: the CLI's PNG differs from the direct calls'")
+
+
+def _stored_bank(n, seed) -> str:
+    feats = np.random.RandomState(seed).randn(n, 2048).astype(np.float32)
+    path = os.path.join(APPS_DIR, f"stored_{seed}.npy")
+    np.save(path, feats / np.linalg.norm(feats, axis=1, keepdims=True))
+    return path
+
+
+def _biggan_sheets(device, bank) -> dict:
+    """cli/visualize.py's sheets on phase 5's G from an upstream .pth bundle,
+    folded bf16: the 8 × 8 sample sheet from stored instances and the
+    interpolation sheets (z and features, z alone, features alone), each
+    against direct sampler calls bit for bit; B1 once a batch."""
+    from ic_gan_tpu_torch.cli import inference as inf
+    from ic_gan_tpu_torch.cli import visualize as vis
+
+    g = Generator(BigGANConfig(**MAIN_G), device=device,
+                  generator=torch.Generator(device=device).manual_seed(0))
+    set_gamma(g)
+    flat = dict(INFERENCE_FLAT, pth_dir=_pth_bundle(os.path.join(APPS_DIR, "biggan"),
+                                                    g.state_dict(), INFERENCE_FLAT),
+                deploy_bf16=True, batch_size=VIS_BATCH, stored_features=bank,
+                sample_sheets=True, sample_interps=True, num_conditionings_gen=SHEET_ROWS,
+                num_imgs_gen=SHEET_COLS, num_rows=INTERP_ROWS, num_midpoints=INTERP_MIDPOINTS,
+                seed=19, out_dir=os.path.join(APPS_DIR, "sheets"))
+    del g
+    argv = _flat_argv(os.path.join(APPS_DIR, "vis.json"), flat, device)
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    written = vis.main(argv)
+    sync()
+    secs, launches = time.perf_counter() - t0, counts()
+    steps = INTERP_MIDPOINTS + 2
+    batches = SHEET_ROWS * math.ceil(SHEET_COLS / VIS_BATCH) \
+        + 3 * math.ceil(INTERP_ROWS * steps / VIS_BATCH)
+    if launches["B1"] != batches or launches["B1"] != sum(launches.values()):
+        raise AssertionError(f"visualize: launches {launches} for {batches} batches")
+
+    sampler, mcfg = inf.load_model_inference(flat, device=device)
+    feats = np.load(bank)
+    dim_z, gen = mcfg.effective_dim_z, torch.Generator().manual_seed(19)
+    direct = np.concatenate([sampler(torch.randn((SHEET_COLS, dim_z), generator=gen),
+                                     None, np.repeat(feats[i][None], SHEET_COLS, 0))
+                             for i in range(SHEET_ROWS)])
+    sheet = vis.sample_sheet(sampler, dim_z, [(None, feats[i]) for i in range(SHEET_ROWS)],
+                             SHEET_COLS, seed=19)
+    _check_equal("sample sheet", sheet, direct)
+    _png_equal("sample sheet", written[0], direct, SHEET_COLS)
+    t = torch.linspace(0.0, 1.0, steps)[None, :, None]
+    for path, fix_z, fix_feats in zip(written[1:], (False, False, True), (False, True, False)):
+        gen = torch.Generator().manual_seed(19)
+        z_a = torch.randn((INTERP_ROWS, 1, dim_z), generator=gen)
+        zs = z_a.expand(-1, steps, -1) if fix_z else \
+            z_a + (torch.randn((INTERP_ROWS, 1, dim_z), generator=gen) - z_a) * t
+        idx = torch.randint(0, len(feats), (INTERP_ROWS, 2), generator=gen)
+        f_a, f_b = (torch.from_numpy(feats)[idx[:, i]][:, None] for i in (0, 1))
+        fs = f_a.expand(-1, steps, -1) if fix_feats else f_a + (f_b - f_a) * t
+        direct = sampler(zs.reshape(-1, dim_z), None, fs.reshape(INTERP_ROWS * steps, -1))
+        sheet = vis.interp_sheet(sampler, dim_z, INTERP_MIDPOINTS, INTERP_ROWS, fix_z,
+                                 fix_feats, feats, seed=19)
+        _check_equal(os.path.basename(path), sheet, direct)
+        _png_equal(os.path.basename(path), path, direct, steps)
+    log(f"visualize (IC-GAN {mcfg.resolution}^2 ch{mcfg.G_ch}, deploy_bf16, batch {VIS_BATCH}): "
+        f"{', '.join(os.path.basename(p) for p in written)} in {secs:.2f} s with the load; "
+        f"{SHEET_ROWS} x {SHEET_COLS} sample sheet and 3 interpolation sheets of "
+        f"{INTERP_ROWS} x {steps} equal direct sampler calls bit for bit (floats and PNGs); "
+        f"B1 launches {launches['B1']} for {batches} batches")
+    return dict(s=secs, launches=launches["B1"])
+
+
+def _sg2_sheets(device, pkl, bank) -> dict:
+    """cli/visualize.py's style mixing (style_mixing.py's seeds) and random
+    sheet on phase 12's StyleGAN2 G, each against direct calls bit for bit;
+    B4 counted."""
+    from ic_gan_tpu_torch.cli import inference as inf
+    from ic_gan_tpu_torch.cli import visualize as vis
+
+    flat = dict(backbone="stylegan2", network_pkl=pkl, stored_features=bank,
+                batch_size=SG2_VIS_BATCH, num_samples=RANDOM_SHEET, seed=19,
+                out_dir=os.path.join(APPS_DIR, "sg2_sheets"), **MIX_SEEDS)
+    out = {}
+    for mode in ("style_mixing", "random"):
+        argv = _flat_argv(os.path.join(APPS_DIR, f"{mode}.json"), dict(flat, mode=mode), device)
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        out[mode] = (vis.main(argv)[0], time.perf_counter() - t0, counts())
+    sampler, cfg = inf.load_model_inference(flat, device=device)
+    g, feats = sampler.module, np.load(bank)
+    rows, cols = (vis._parse_num_list(MIX_SEEDS[k], None) for k in ("row_seeds", "col_seeds"))
+    styles = vis._parse_num_list(MIX_SEEDS["col_styles"], None)
+    seeds = list(dict.fromkeys(rows + cols))
+    with torch.inference_mode():
+        zs = torch.stack([torch.randn((cfg.z_dim,), generator=torch.Generator().manual_seed(s))
+                          for s in seeds]).to(device)
+        ws = g.map_ws(zs, None, torch.from_numpy(feats[0]).to(device).expand(len(seeds), -1))
+        mixed = []
+        for r in rows:
+            for c in cols:
+                w = ws[seeds.index(r)].clone()
+                w[styles] = ws[seeds.index(c)][styles]
+                mixed.append(w)
+        direct = g.synthesize(torch.stack(mixed), noise_mode="const").permute(0, 2, 3, 1)
+    _png_equal("style mixing", out["style_mixing"][0], direct.float().cpu().numpy(), len(cols))
+    idx = np.random.RandomState(19).randint(0, len(feats), RANDOM_SHEET)
+    z = torch.randn((RANDOM_SHEET, cfg.z_dim), generator=torch.Generator().manual_seed(19))
+    _png_equal("random sheet", out["random"][0], sampler(z, None, feats[idx]), 8)
+    b4 = {m: o[2]["B4"] for m, o in out.items()}
+    if min(b4.values()) == 0:
+        raise AssertionError(f"StyleGAN2 sheets launched {b4} B4 kernels")
+    log(f"visualize (StyleGAN2 {cfg.img_resolution}^2, h_dim {cfg.h_dim}): style mixing rows "
+        f"{MIX_SEEDS['row_seeds']} x cols {MIX_SEEDS['col_seeds']}, styles "
+        f"{MIX_SEEDS['col_styles']}: {out['style_mixing'][1]:.2f} s; random sheet of "
+        f"{RANDOM_SHEET} at batch {SG2_VIS_BATCH}: {out['random'][1]:.2f} s (the load "
+        f"included); both PNGs equal direct calls; B4 launches {b4}")
+    return dict(launches=sum(b4.values()), s={m: o[1] for m, o in out.items()})
+
+
+def _projector(device, pkl, bank, profile=False) -> dict:
+    """``project`` on phase 12's G toward one of its own images, LPIPS with
+    VGG16 from a seed, at upstream's steps: ms a step, the loss falling, B4
+    forward and backward launches a step."""
+    from ic_gan_tpu_torch.cli import inference as inf
+    from ic_gan_tpu_torch.cli.projector import project
+    from ic_gan_tpu_torch.eval.metrics import make_lpips_feature_fn
+
+    g, cfg = inf.load_generator(dict(backbone="stylegan2", network_pkl=pkl), device)
+    feats = torch.from_numpy(np.load(bank)[1]).to(device)
+    with torch.no_grad():
+        z = torch.randn((1, cfg.z_dim), generator=torch.Generator().manual_seed(191)).to(device)
+        target = g(z, None, feats[None], noise_mode="const")[0].permute(1, 2, 0).clamp(-1, 1)
+    feature_fn = make_lpips_feature_fn(device=device)
+    reset_counts()
+    reset_peak()
+    sync()
+    t0 = time.perf_counter()
+    w, hist = project(g, target, cond_feats=feats, num_steps=PROJECT_STEPS,
+                      w_avg_samples=PROJECT_W_AVG, feature_fn=feature_fn, seed=19)
+    sync()
+    secs, launches = time.perf_counter() - t0, counts()
+    if not (np.all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"projector: loss {hist[0]} → {hist[-1]}")
+    if launches["B4"] < PROJECT_STEPS or launches["B4bwd"] < PROJECT_STEPS:
+        raise AssertionError(f"projector launches {launches}")
+    per = {k: launches[k] / PROJECT_STEPS for k in ("B4", "B4bwd")}
+    if profile:
+        phase_profile("20 projector steps (with the w statistics of 10,000 samples)",
+                      lambda: project(g, target, cond_feats=feats, num_steps=20,
+                                      w_avg_samples=PROJECT_W_AVG, feature_fn=feature_fn))
+    log_card(f"projector (StyleGAN2 {cfg.img_resolution}^2, LPIPS VGG16 from a seed, "
+             f"{PROJECT_STEPS} steps, "
+             f"{PROJECT_W_AVG} w samples): {1e3 * secs / PROJECT_STEPS:.2f} ms a step "
+             f"({secs:.2f} s with the w statistics and the target's features); loss "
+             f"{hist[0]:.4f} → {hist[len(hist) // 2]:.4f} → {hist[-1]:.4f}; B4 forward "
+             f"{per['B4']:.2f} and backward {per['B4bwd']:.2f} launches a step (the mapping of "
+             f"the w samples included); peak memory {peak_gib():.2f} GiB; w {tuple(w.shape)}")
+    return dict(ms_per_step=1e3 * secs / PROJECT_STEPS, loss=(hist[0], hist[-1]),
+                launches=launches, per_step=per)
+
+
+def _synthetic_bpe():
+    """A BPE table whose merges spell the prompt's words (OpenAI's table is
+    not in the repository) and the prompt."""
+    from ic_gan_tpu_torch.data.tokenizer import SimpleTokenizer
+
+    prompt = "A red dragon over a green field"
+    merges = []
+    for word in ("red", "dragon", "over", "green", "field"):
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            merges.append((parts[0], parts[1]))
+            parts = [parts[0] + parts[1]] + parts[2:]
+    return SimpleTokenizer(merges), prompt
+
+
+def _clip_guided(device, weights, bank, profile=False) -> dict:
+    """CLIP ViT-B/32 from a seed over phase 5's G folded in f32: the colab's
+    search (population 50, 64 augmentations) as CMA-ES + terminal Adam and
+    as Adam; ms and B1/B2 launches per iteration of each phase."""
+    from ic_gan_tpu_torch.cli.clip_guided import clip_guided_search
+    from ic_gan_tpu_torch.data.tokenizer import tokenize
+    from ic_gan_tpu_torch.models.clip import CLIP, vit_b32
+
+    clip = CLIP(vit_b32(), device=device,
+                generator=torch.Generator(device=device).manual_seed(192)).requires_grad_(False)
+    tok, prompt = _synthetic_bpe()
+    tokens = tokenize(prompt, tok, clip.cfg.context_length)
+    with torch.no_grad():
+        text = clip.encode_text(torch.from_numpy(tokens).to(device))
+    cfg = BigGANConfig(**MAIN_G)
+    g = fold_spectral_norm(skip_init(Generator, cfg, device=device))
+    g.load_state_dict({k: v.to(device) for k, v in weights.items()})
+    g.requires_grad_(False)
+    feats = torch.from_numpy(np.load(bank)[2]).to(device)
+
+    def generate(z):
+        return g(z, None, feats.expand(z.shape[0], -1)).permute(0, 2, 3, 1)
+
+    out = {}
+    for optimizer, iters, terminal in (("CMA-ES + terminal Adam", CLIP_CMA_ITERS,
+                                        CLIP_TERMINAL_ITERS), ("Adam", CLIP_ADAM_ITERS, 0)):
+        marks = []
+
+        def callback(i, losses, z_pop):
+            sync()
+            marks.append((time.perf_counter(), counts()))
+
+        reset_counts()
+        reset_peak()
+        sync()
+        marks.append((time.perf_counter(), counts()))
+        res = clip_guided_search(generate, clip.encode_image, text, cfg.effective_dim_z,
+                                 optimizer=optimizer, pop_size=CLIP_POP, iterations=iters,
+                                 terminal_iterations=terminal, augmentations=CLIP_AUGS,
+                                 clip_res=clip.cfg.image_resolution, seed=19, callback=callback)
+        its = [dict(ms=1e3 * (b[0] - a[0]), B1=b[1]["B1"] - a[1]["B1"],
+                    B2=b[1]["B2"] - a[1]["B2"]) for a, b in zip(marks, marks[1:])]
+        best = [h["best"] for h in res["history"]]
+        if not (np.all(np.isfinite(best)) and res["best_loss"] <= best[0]
+                and np.isfinite(res["best_image"]).all()
+                and res["best_image"].shape == (cfg.resolution, cfg.resolution, 3)):
+            raise AssertionError(f"CLIP-guided {optimizer}: best {res['best_loss']}, {best}")
+        phases = {"CMA-ES": its[:iters], "terminal Adam": its[iters:]} if terminal \
+            else {"Adam": its}
+        for name, rows in phases.items():
+            if name != "CMA-ES" and any(r["B2"] == 0 for r in rows):
+                raise AssertionError(f"CLIP-guided {name}: an iteration launched no B2")
+            if any(r["B1"] == 0 for r in rows):
+                raise AssertionError(f"CLIP-guided {name}: an iteration launched no B1")
+        out[optimizer] = dict(phases={n: dict(ms=[r["ms"] for r in rows],
+                                              B1=[r["B1"] for r in rows],
+                                              B2=[r["B2"] for r in rows])
+                                      for n, rows in phases.items()},
+                              best=best, peak_gib=peak_gib())
+        log_card(f"CLIP-guided {optimizer} (ViT-B/32 f32 from a seed, IC-GAN "
+                 f"{cfg.resolution}^2 ch{cfg.G_ch} folded f32, population {CLIP_POP}, "
+                 f"{CLIP_AUGS} augmentations): "
+                 + "; ".join(f"{n}: ms an iteration " + ", ".join(f"{r['ms']:.1f}" for r in rows)
+                             + ", B1 " + ", ".join(str(r["B1"]) for r in rows)
+                             + ", B2 " + ", ".join(str(r["B2"]) for r in rows)
+                             for n, rows in phases.items())
+                 + f"; best loss by iteration {', '.join(f'{b:.4f}' for b in best)}, "
+                 f"best {res['best_loss']:.4f} at iteration {res['best_iteration']}; peak "
+                 f"memory {peak_gib():.2f} GiB")
+    launches = {k: sum(sum(p[k]) for o in out.values() for p in o["phases"].values())
+                for k in ("B1", "B2")}
+    if profile:
+        phase_profile(f"one CLIP-guided Adam iteration at population {CLIP_POP} (and the best "
+                      f"image's forward)", lambda: clip_guided_search(
+                          generate, clip.encode_image, text, cfg.effective_dim_z,
+                          optimizer="Adam", pop_size=CLIP_POP, iterations=1,
+                          augmentations=CLIP_AUGS, clip_res=clip.cfg.image_resolution, seed=19))
+    log(f"tokenizer on a synthetic BPE table of {len(tok.bpe_ranks)} merges: {prompt!r} → "
+        f"{tokens[0][:int(np.argmax(tokens[0])) + 1].tolist()}")
+    return dict(searches=out, launches=launches)
+
+
+def _tfhub_dump(resolution, ch, rng) -> dict:
+    """A TFHub BigGAN variable dump with the release's names and shapes
+    (``io/tfhub_import.py``'s inputs), weights from ``rng``."""
+    from ic_gan_tpu_torch.io.tfhub_import import _GEOMETRY, tfhub_config
+
+    geo, arch = _GEOMETRY[resolution], tfhub_config(resolution).replace(G_ch=ch).g_arch
+    z_chunk = geo["dim_z"] // (geo["blocks"] + 1)
+    cond, suff, gen_dir = 128 + z_chunk, "/ema_b999900", "module/Generator"
+    d = {}
+
+    def add(path, shape, ema=True, scale=0.05):
+        d[f"{path}{suff if ema else ''}:0"] = (rng.standard_normal(shape, np.float32)
+                                              * np.float32(scale))
+
+    def sn(path, shape, bias=True):
+        add(f"{path}/w", shape, scale=1.0 / np.sqrt(np.prod(shape[:-1])))
+        add(f"{path}/u0", (1, shape[-1]), ema=False, scale=1.0)
+        if bias:
+            add(f"{path}/b", (shape[-1],))
+
+    for i, (cin, cout) in enumerate(zip(arch["in_channels"], arch["out_channels"])):
+        blk = f"{gen_dir}/GBlock" + (f"_{i}" if i else "")
+        sn(f"{blk}/conv0", (3, 3, cin, cout))
+        sn(f"{blk}/conv1", (3, 3, cout, cout))
+        sn(f"{blk}/conv_sc", (1, 1, cin, cout))
+        for hyper, c in (("HyperBN", cin), ("HyperBN_1", cout)):
+            for which in ("gamma", "beta"):
+                sn(f"{blk}/{hyper}/{which}", (cond, c), bias=False)
+            cr = hyper.replace("HyperBN", "CrossReplicaBN")
+            d[f"{blk}/{cr}/accumulated_mean:0"] = rng.standard_normal(c, np.float32) * 0.01
+            d[f"{blk}/{cr}/accumulated_var:0"] = 1 + rng.random(c, np.float32) * 0.1
+    ca = arch["out_channels"][geo["attn_block"]]
+    for name, cin, cout in (("theta", ca, ca // 8), ("phi", ca, ca // 8), ("g", ca, ca // 2),
+                            ("o_conv", ca // 2, ca)):
+        sn(f"{gen_dir}/attention/{name}", (1, 1, cin, cout), bias=False)
+    add(f"{gen_dir}/attention/gamma", (), scale=0.5)
+    sn(f"{gen_dir}/G_Z/G_linear", (z_chunk, 16 * 16 * ch))
+    add("module/linear/w", (1000, 128), scale=1.0)
+    d[f"{gen_dir}/ScaledCrossReplicaBN/gamma{suff}:0"] = \
+        1 + rng.standard_normal((1, 1, 1, ch), np.float32) * np.float32(0.05)
+    add(f"{gen_dir}/ScaledCrossReplicaBN/beta", (1, 1, 1, ch))
+    d[f"{gen_dir}/ScaledCrossReplicaBNbn/accumulated_mean:0"] = \
+        rng.standard_normal(ch, np.float32) * 0.01
+    d[f"{gen_dir}/ScaledCrossReplicaBNbn/accumulated_var:0"] = 1 + rng.random(ch, np.float32) * 0.1
+    sn(f"{gen_dir}/conv_2d", (3, 3, ch, 3))
+    return d
+
+
+def _tfhub(device, profile=False) -> dict:
+    """A synthetic TFHub BigGAN-256 dump through ``convert_tfhub_dump`` and
+    ``load_tfhub_generator``, folded and in bf16 behind ``make_sampler`` at
+    batch 128 (img/s, peak memory, B1 a batch), against the same weights in
+    f32 on the CPU at phase 6's bars; then ``cli/convert_tfhub.py``."""
+    from ic_gan_tpu_torch.cli import convert_tfhub
+    from ic_gan_tpu_torch.io import tfhub_import
+    from ic_gan_tpu_torch.io.deploy import set_compute_dtype
+    from ic_gan_tpu_torch.io.tfhub_import import convert_tfhub_dump, load_tfhub_generator
+    from ic_gan_tpu_torch.io.torch_import import load_generator_state_dict
+
+    t0 = time.perf_counter()
+    dump = _tfhub_dump(TFHUB_RES, tfhub_import._CH, np.random.default_rng(193))
+    path = os.path.join(APPS_DIR, f"biggan-{TFHUB_RES}.npz")
+    np.savez(path, **dump)
+    sd = convert_tfhub_dump(dump, TFHUB_RES)
+    del dump
+    make_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    g, cfg = load_tfhub_generator(path, TFHUB_RES, device=device)
+    sync()
+    load_s = time.perf_counter() - t0
+    if not all(torch.equal(g.state_dict()[k].cpu(), torch.as_tensor(v)) for k, v in sd.items()):
+        raise AssertionError("tfhub: the loaded G does not hold the converted state dict")
+    unfolded = {k: v.detach().clone() for k, v in g.state_dict().items()}
+    fold_spectral_norm(g)
+    weights = {k: v.detach().clone() for k, v in g.state_dict().items()}
+    cast_params(set_compute_dtype(g, torch.bfloat16))
+    sampler = make_sampler(g, batch_size=SAMPLER_BATCH, device=device)
+    gen = torch.Generator(device=device).manual_seed(194)
+    z = torch.randn((SAMPLER_BATCH, cfg.effective_dim_z), generator=gen, device=device)
+    y = torch.randint(0, cfg.n_classes, (SAMPLER_BATCH,), generator=gen, device=device)
+    imgs, launches = _launches(sampler, z, y)
+    if launches["B1"] != 1 or sum(launches.values()) != 1 or not torch.isfinite(imgs).all():
+        raise AssertionError(f"tfhub sampler: launches {launches} for one batch")
+    reset_peak()
+    times = []
+    for _ in range(5):
+        sync()
+        t1 = time.perf_counter()
+        sampler(z, y, device_output=True)
+        sync()
+        times.append(time.perf_counter() - t1)
+    med = statistics.median(times)
+    peak = peak_gib()
+    if profile:
+        phase_profile(f"one TFHub sampler batch of {SAMPLER_BATCH}",
+                      lambda: sampler(z, y, device_output=True))
+    attn = [m for m in g.modules() if isinstance(m, SelfAttention)]
+    parity = generator_parity(g, weights, device)
+    del sampler, g
+    torch.cuda.empty_cache()
+    pth, grid = os.path.join(APPS_DIR, "tfhub.pth"), os.path.join(APPS_DIR, "tfhub.png")
+    reset_counts()
+    t0 = time.perf_counter()
+    cg, _ = convert_tfhub.main(["--set", f"dump={path}", f"resolution={TFHUB_RES}",
+                                f"pth_out={pth}", f"sample_grid={grid}", "--device", str(device)])
+    cli_s, cli_launches = time.perf_counter() - t0, counts()
+    again = load_generator_state_dict(torch.load(pth, weights_only=True), cfg, device=device)[0]
+    same = all(torch.equal(v, unfolded[k]) for k, v in again.state_dict().items()) and \
+        all(torch.equal(v, unfolded[k]) for k, v in cg.state_dict().items())
+    if not same or cli_launches["B1"] != 1 or not os.path.exists(grid):
+        raise AssertionError(f"convert_tfhub: weights kept {same}, launches {cli_launches}")
+    log(f"tfhub: a synthetic BigGAN-{TFHUB_RES} dump (ch {cfg.G_ch}, dim_z {cfg.dim_z}, "
+        f"attention at {cfg.G_attn}^2, {sum(v.size for v in sd.values()) / 1e6:.2f} M values) "
+        f"made and converted in {make_s:.2f} s; load_tfhub_generator from its .npz {load_s:.2f} s (σ "
+        f"synthesized by power iteration on the host); {len(attn)} attention layer, B1 once "
+        f"a batch")
+    log_card(f"tfhub sampler batch {SAMPLER_BATCH} bf16: {SAMPLER_BATCH / med:.2f} img/s "
+             f"({1e3 * med:.2f} ms a batch, median of 5: "
+             + ", ".join(f"{1e3 * t:.2f}" for t in times) + f"); peak memory {peak:.2f} GiB; "
+             f"B1 launches a batch {launches['B1']}")
+    log(f"convert_tfhub CLI: pth_out and the bf16 sample grid in {cli_s:.2f} s; the .pth "
+        f"reloads bit for bit; B1 launches {cli_launches['B1']}")
+    return dict(img_per_s=SAMPLER_BATCH / med, peak_gib=peak, load_s=load_s, parity=parity,
+                launches=launches["B1"] + cli_launches["B1"], cli_s=cli_s)
+
+
+def _tf1_graph(seed) -> bytes:
+    """A TF1 GraphDef over every op ``TFGraphExecutor`` handles, fed at
+    ``ExpandDims`` (N, 256, 256, 3) in [0, 255]: the legacy resize to 299²,
+    the (x − 128)/128 shift, 8 convolutions with batch norm, both concats and
+    both pools down to a 2048-wide ``pool_3`` (N, 1, 1, 2048), and the
+    official ``softmax/logits/MatMul`` → ``softmax`` head over 1008 classes.
+    He-normal weights from ``seed``."""
+    from ic_gan_tpu_torch.io.graphdef import encode_graphdef, encode_node
+
+    rng = np.random.RandomState(seed)
+    nodes = []
+
+    def node(name, op, inputs, attrs=None):
+        nodes.append(encode_node(name, op, inputs, attrs or {}))
+        return name
+
+    def const(name, a):
+        return node(name, "Const", [], {"value": {"tensor": np.asarray(a)}})
+
+    def conv(name, x, k, cin, cout, stride, pad, bn=True):
+        w = const(f"{name}/w", (rng.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin)))
+                  .astype(np.float32))
+        y = node(name, "Conv2D", [x, w], {"strides": {"list_i": [1, stride, stride, 1]},
+                                          "padding": {"s": pad}})
+        if not bn:
+            return y
+        m, v, b, g_ = (const(f"{name}/bn/{n}", a.astype(np.float32)) for n, a in (
+            ("m", 0.1 * rng.randn(cout)), ("v", rng.uniform(0.5, 1.5, cout)),
+            ("b", 0.1 * rng.randn(cout)), ("g", rng.uniform(0.5, 1.5, cout))))
+        y = node(f"{name}/bn", "BatchNormWithGlobalNormalization", [y, m, v, b, g_],
+                 {"variance_epsilon": {"f": 1e-3}, "scale_after_normalization": {"b": True}})
+        return node(f"{name}/relu", "Relu", [y])
+
+    def pool(name, op, x, k, s, pad):
+        return node(name, op, [x], {"ksize": {"list_i": [1, k, k, 1]},
+                                    "strides": {"list_i": [1, s, s, 1]}, "padding": {"s": pad}})
+
+    x = node("ExpandDims", "Placeholder", [], {"dtype": {"type": 1}})
+    x = node("Cast", "Cast", [node("Identity", "Identity", [x])], {"DstT": {"type": 1}})
+    x = node("ResizeBilinear", "ResizeBilinear",
+             [x, const("ResizeBilinear/size", np.asarray([299, 299], np.int32))],
+             {"align_corners": {"b": False}})
+    x = node("Sub", "Sub", [x, const("Sub/y", np.float32(128.0))])
+    x = node("Mul", "Mul", [x, const("Mul/y", np.float32(1 / 128.0))])
+    x = conv("conv", x, 3, 3, 32, 2, b"VALID")                       # 149²
+    x = conv("conv_1", x, 3, 32, 64, 2, b"SAME")                    # 75²
+    x = pool("pool", "MaxPool", x, 3, 2, b"VALID")                  # 37²
+    a = conv("mixed/branch_1x1", x, 1, 64, 96, 1, b"SAME")
+    b = conv("mixed/branch_3x3", x, 3, 64, 96, 1, b"SAME")
+    x = node("mixed/join", "Concat", [const("mixed/axis", np.int32(3)), a, b])
+    x = node("mixed/add", "Add", [pool("mixed/avg", "AvgPool", x, 3, 1, b"SAME"), x])
+    x = conv("conv_2", x, 3, 192, 256, 2, b"SAME")                  # 19²
+    x = pool("pool_1", "MaxPool", x, 3, 2, b"VALID")                # 9²
+    a = conv("mixed_10/branch_a", x, 1, 256, 1024, 1, b"SAME", bn=False)
+    b = conv("mixed_10/branch_b", x, 1, 256, 1024, 1, b"SAME", bn=False)
+    x = node("mixed_10/join", "ConcatV2", [a, b, const("mixed_10/axis", np.int32(3))])
+    x = node("mixed_10/relu", "Relu", [node("mixed_10/bias", "BiasAdd", [
+        x, const("mixed_10/b", (0.1 * rng.randn(2048)).astype(np.float32))])])
+    x = pool("pool_3", "AvgPool", x, 9, 1, b"VALID")                # (N, 1, 1, 2048)
+    x = node("pool_3/squeeze", "Squeeze", [x], {"squeeze_dims": {"list_i": [1, 2]}})
+    x = node("pool_3/expand", "ExpandDims", [x, const("pool_3/axis", np.int32(1))])
+    x = node("pool_3/reshape", "Reshape", [x, const("pool_3/shape",
+                                                      np.asarray([1, 2048], np.int32))])
+    w = const("softmax/weights", (rng.randn(2048, 1008) / np.sqrt(2048)).astype(np.float32))
+    x = node("softmax/logits/MatMul", "MatMul", [x, w])
+    x = node("softmax/logits", "BiasAdd", [x, const("softmax/biases", np.zeros(1008, np.float32))])
+    node("softmax", "Softmax", [x])
+    return encode_graphdef(nodes)
+
+
+def _official_tf1(device, bank) -> dict:
+    """``OfficialTF1Evaluator`` and ``cli/official_eval.py`` over 1,024 of
+    phase 5's images (and 1,024 more for ``fid_a``/``fid_b``), img/s; the
+    card's executor against the CPU's at 1e-3."""
+    from ic_gan_tpu_torch.cli import official_eval
+    from ic_gan_tpu_torch.eval.tf_inception import (
+        OfficialTF1Evaluator,
+        TFGraphExecutor,
+        evaluate_images,
+    )
+    from ic_gan_tpu_torch.io.graphdef import parse_graphdef
+
+    pb = _tf1_graph(195)
+    pb_path = os.path.join(APPS_DIR, "classify_image_graph_def.pb")
+    with open(pb_path, "wb") as f:
+        f.write(pb)
+    g16, _ = build_generator(device)
+    sampler = make_sampler(g16, batch_size=SAMPLER_BATCH, device=device)
+    feats = np.load(bank)
+    gen = torch.Generator(device=device).manual_seed(196)
+    reset_counts()
+    sets = []
+    for i in range(2):
+        z = torch.randn((TF1_IMAGES, g16.cfg.effective_dim_z), generator=gen, device=device)
+        idx = np.random.RandomState(197 + i).randint(0, len(feats), TF1_IMAGES)
+        imgs = sampler(z, None, feats[idx])
+        path = os.path.join(APPS_DIR, f"samples_{i}.npz")
+        np.savez(path, x=np.transpose(np.uint8(np.clip((imgs + 1) * 127.5, 0, 255)),
+                                      (0, 3, 1, 2)))
+        sets.append(path)
+    sample_b1 = counts()["B1"]
+    del sampler, g16
+    torch.cuda.empty_cache()
+    runs = []
+    for i, path in enumerate(sets):
+        sync()
+        t0 = time.perf_counter()
+        res = official_eval.main(["--set", f"samples={path}", f"pb_path={pb_path}",
+                                  f"out_dir={APPS_DIR}", f"pool_npz=TF_pool_{i}.npz",
+                                  f"batch_size={TF1_BATCH}", "--device", str(device)])
+        sync()
+        runs.append((res, time.perf_counter() - t0))
+    fid = official_eval.main(["--set", f"fid_a={os.path.join(APPS_DIR, 'TF_pool_0.npz')}",
+                              f"fid_b={os.path.join(APPS_DIR, 'TF_pool_1.npz')}",
+                              "--device", str(device)])["FID"]
+    ev = OfficialTF1Evaluator(pb_path, device=device)
+    imgs = official_eval._load_samples(sets[0])
+    ev(np.uint8(255 * (imgs[:TF1_BATCH] + 1) / 2.0).astype(np.float32))  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    direct = evaluate_images(ev, imgs, batch=TF1_BATCH)
+    sync()
+    eval_s = time.perf_counter() - t0
+    for k in ("IS_mean", "IS_std", "mu", "sigma"):
+        if not np.allclose(direct[k], runs[0][0][k], rtol=1e-6, atol=1e-7):
+            raise AssertionError(f"official_eval: {k} differs from evaluate_images'")
+    # The fid_a/fid_b path is frechet_distance on the saved moments; float64
+    # on the host beside it (both covariances have rank < 2048 here).
+    (mu_a, s_a), (mu_b, s_b) = ((f["mu"], f["sigma"]) for f in (
+        np.load(os.path.join(APPS_DIR, f"TF_pool_{i}.npz")) for i in (0, 1)))
+    fid_direct = frechet_distance(mu_a, s_a, mu_b, s_b, device=device)
+    fid64 = fid_f64(mu_a, s_a, mu_b, s_b)
+    if not (np.isfinite(fid) and fid == fid_direct
+            and runs[0][0]["pool"].shape == (TF1_IMAGES, 2048)):
+        raise AssertionError(f"official_eval: FID {fid}, frechet_distance {fid_direct}")
+    x255 = torch.from_numpy(np.uint8(255 * (imgs[:TF1_CHECK_IMAGES] + 1) / 2.0).astype(np.float32))
+    nodes = parse_graphdef(pb)
+    worst = {}
+    with full_f32():                       # OfficialTF1Evaluator's precision
+        outs = {dev: TFGraphExecutor(nodes, "ExpandDims", ["pool_3", "softmax"], device=dev)(
+            x255.to(dev)) for dev in (device, torch.device("cpu"))}
+    for name, got, ref in zip(("pool_3", "softmax"), outs[device], outs[torch.device("cpu")]):
+        worst[name] = (got.cpu() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    if not all(w <= TF1_REL for w in worst.values()):
+        raise AssertionError(f"TF1 executor card against CPU: {worst}")
+    log_card(f"official TF1 (a {len(nodes)}-node GraphDef over every op TFGraphExecutor "
+             f"handles, 299^2, 2048-wide pool_3, 1008-way softmax; weights from a seed): "
+             f"evaluate_images over {TF1_IMAGES} of phase 5's images at batch {TF1_BATCH} "
+             f"{TF1_IMAGES / eval_s:.1f} img/s ({eval_s:.3f} s); cli/official_eval.py "
+             + ", ".join(f"{TF1_IMAGES / s:.1f}" for _, s in runs) + " img/s end to end "
+             f"(the npz read included); IS {runs[0][0]['IS_mean']:.4f} ± "
+             f"{runs[0][0]['IS_std']:.4f}, equal to evaluate_images'; fid_a/fid_b FID "
+             f"{fid:.4f}, equal to frechet_distance's, against {fid64:.4f} in float64 on the "
+             f"host (traces {np.trace(s_a):.1f}, {np.trace(s_b):.1f}; covariances of rank < "
+             f"2048); card against CPU executor on {TF1_CHECK_IMAGES} images: "
+             + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+             + f" of max(1, |CPU|) (bar {TF1_REL:g}); B1 {sample_b1} for the samples")
+    return dict(img_per_s=TF1_IMAGES / eval_s, cli_img_per_s=[TF1_IMAGES / s for _, s in runs],
+                fid=fid, fid_f64=fid64, card_vs_cpu=worst, launches=sample_b1)
+
+
+def phase_remaining_clis(device, sg2_logs, biggan_logs, profile=False) -> dict:
+    """Phase 19: the sheets (cli/visualize.py), the projector, the CLIP-guided
+    search, the TFHub importer and its CLI, the official TF1 Inception and
+    its CLI, and plot_logs' series of phases 12 and 13."""
+    shutil.rmtree(APPS_DIR, ignore_errors=True)
+    os.makedirs(APPS_DIR)
+    t0 = time.perf_counter()
+    for cut in PHASE19_CUTS:
+        log(f"phase 19 cut: {cut}")
+    out, part_s = {}, {}
+
+    def part(name, fn, *args):
+        sync()
+        t1 = time.perf_counter()
+        out[name] = fn(*args)
+        torch.cuda.empty_cache()
+        part_s[name] = time.perf_counter() - t1
+
+    try:
+        bank = _stored_bank(STORED_INSTANCES, 190)
+        part("visualize", _biggan_sheets, device, bank)
+        pkl = _sg2_snapshot(device, APPS_DIR)
+        part("sg2_sheets", _sg2_sheets, device, pkl, bank)
+        part("projector", _projector, device, pkl, bank, profile)
+        part("clip_guided", lambda: _clip_guided(device, build_generator(device)[1], bank,
+                                                 profile))
+        part("tfhub", _tfhub, device, profile)
+        part("official_tf1", _official_tf1, device, bank)
+    finally:
+        shutil.rmtree(APPS_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    for name, series in (("phase 12 (StyleGAN2)", sg2_logs), ("phase 13 (BigGAN)", biggan_logs)):
+        if not series:
+            raise AssertionError(f"plot_logs read no series of {name}'s logs")
+        log(f"plot_logs series of {name}: " + "; ".join(
+            f"{k} " + ", ".join(f"{float(x):.4g}" for x in v) for k, v in sorted(series.items())))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 19 took {out['phase_s']:.1f} s, its checks included: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items()))
+    return out
+
+
 def main(argv) -> int:
     global CARD
     card = CARD = phase_env()
@@ -3919,6 +4617,12 @@ def main(argv) -> int:
     int8 = phase_int8_and_export(device, main_run["img_per_s"], deep_unfolded,
                                  "--profile" in argv)
     del deep_unfolded
+    apps = phase_remaining_clis(device, loop["logs"], bg["logs"], "--profile" in argv)
+    app_b1 = dict(visualize=apps["visualize"]["launches"],
+                  clip_guided=apps["clip_guided"]["launches"]["B1"],
+                  tfhub=apps["tfhub"]["launches"], official_tf1=apps["official_tf1"]["launches"])
+    app_b4 = dict(visualize=apps["sg2_sheets"]["launches"],
+                  projector=apps["projector"]["launches"]["B4"])
     q_b1 = dict(int8_sampler=sum(int8[k]["launches"] for k in ("biggan", "deep")),
                 exported_sampler=sum(e["launches"] for k in ("biggan", "deep")
                                      for e in int8[k]["exports"]))
@@ -3928,12 +4632,14 @@ def main(argv) -> int:
     b2 = bwd_timings["G"]
     by_path = lambda sampler, train_, sg2_train, sg2_loop_=0, biggan_loop_=0, eval_=0, \
         deep_sampler=0, deep_train_=0, deep_loop_=0, inference_=0, test_cli=0, \
-        calc_metrics_cli=0, int8_sampler=0, exported_sampler=0: dict(  # noqa: E731
+        calc_metrics_cli=0, int8_sampler=0, exported_sampler=0, visualize=0, projector=0, \
+        clip_guided=0, tfhub=0, official_tf1=0: dict(  # noqa: E731
             sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_,
             biggan_loop=biggan_loop_, eval=eval_, deep_sampler=deep_sampler,
             deep_train=deep_train_, deep_loop=deep_loop_, inference=inference_,
             test_cli=test_cli, calc_metrics_cli=calc_metrics_cli, int8_sampler=int8_sampler,
-            exported_sampler=exported_sampler)
+            exported_sampler=exported_sampler, visualize=visualize, projector=projector,
+            clip_guided=clip_guided, tfhub=tfhub, official_tf1=official_tf1)
     deep_b1 = dict(deep_sampler=deep_launches, deep_train_=deep_train["launches"]["B1"],
                    deep_loop_=deep_loop["launches"]["B1"], inference_=inference["launches"],
                    test_cli=prep["test_launches"])
@@ -3957,9 +4663,9 @@ def main(argv) -> int:
         source="ic_gan_tpu_torch/csrc/sagan_attention_fwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:56",
         launches=main_run["launches"] + train["fwd"] + bg["launches"]["B1"] + eval_b1
-        + sum(deep_b1.values()) + sum(q_b1.values()),
+        + sum(deep_b1.values()) + sum(q_b1.values()) + sum(app_b1.values()),
         launches_by_path=by_path(main_run["launches"], train["fwd"], 0, 0,
-                                 bg["launches"]["B1"], eval_b1, **deep_b1, **q_b1),
+                                 bg["launches"]["B1"], eval_b1, **deep_b1, **q_b1, **app_b1),
         launches_per_biggan_loop_step=bg["per_step"]["B1"],
         launches_per_eval_pass={m: r["launches"]["B1"] for m, r in ev["runs"].items()},
         max_abs_err=max_err["fwd"],
@@ -3975,19 +4681,28 @@ def main(argv) -> int:
                                 conditioned_sampler=inference["conditioned_launches"]),
         prepare_and_eval_clis={k: v for k, v in prep.items() if not k.endswith("launches")},
         int8_and_export={k: v for k, v in int8.items() if k != "stylegan2"},
+        tfhub_shape=dict(shape=list(TFHUB_ATTN), **timings["tfhub sampler"],
+                         plain="in chunks of %d samples" % PLAIN_CHUNK,
+                         launches_per_sampler_batch=1,
+                         sampler_img_per_s=apps["tfhub"]["img_per_s"]),
+        search_shape_f32=dict(shape=list(SEARCH_ATTN), **timings["search f32"],
+                              launches_per_iteration=apps["clip_guided"]["searches"]),
     ), dict(
         name="sagan_attention_bwd", route="cuda",
         source="ic_gan_tpu_torch/csrc/sagan_attention_bwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:136",
-        launches=train["bwd"] + bg["launches"]["B2"] + sum(deep_b2.values()),
-        launches_by_path=by_path(0, train["bwd"], 0, 0, bg["launches"]["B2"], **deep_b2),
+        launches=train["bwd"] + bg["launches"]["B2"] + sum(deep_b2.values())
+        + apps["clip_guided"]["launches"]["B2"],
+        launches_by_path=by_path(0, train["bwd"], 0, 0, bg["launches"]["B2"], **deep_b2,
+                                 clip_guided=apps["clip_guided"]["launches"]["B2"]),
         launches_per_biggan_loop_step=bg["per_step"]["B2"],
         max_abs_err=max_err["bwd"],
         ms=b2["kernel_ms"], plain_ms=b2["plain_ms"],
         bound_ms=b2["bound_ms"], bound_by=b2["bound_by"],
         library_ms=b2["library_ms"], tflops=b2["tflops"], of_bound=b2["of_bound"],
         tensor_core_instructions={k: v for k, v in tensor_cores.items() if "bwd" in k},
-        train_shapes=bwd_timings,
+        train_shapes={k: v for k, v in bwd_timings.items() if k in ("G", "D")},
+        search_shape_f32=dict(shape=list(SEARCH_ATTN), **bwd_timings["search f32"]),
         deep_shapes=deep_shapes("bwd"),
     ), dict(
         name="row_shift", route="cuda", source="ic_gan_tpu_torch/csrc/row_shift.cu",
@@ -4006,9 +4721,10 @@ def main(argv) -> int:
         name="bias_act", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
         replaces="ic_gan_tpu/ops/pallas/bias_act.py:103",
         launches=sg2_run["launches"]["B4"] + loop["launches"]["B4"] + prep["calc_launches"]
-        + sum(q_b4.values()),
+        + sum(q_b4.values()) + sum(app_b4.values()),
         launches_by_path=by_path(0, 0, sg2_run["launches"]["B4"], loop["launches"]["B4"],
-                                 calc_metrics_cli=prep["calc_launches"], **q_b4),
+                                 calc_metrics_cli=prep["calc_launches"], **q_b4, **app_b4),
+        launches_per_projector_step=apps["projector"]["per_step"]["B4"],
         int8_and_export=int8["stylegan2"],
         launches_per_step={k: v["B4"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
         launches_per_loop_step=per_loop_step("B4"),
@@ -4018,8 +4734,11 @@ def main(argv) -> int:
     ), dict(
         name="bias_act_bwd", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
         replaces="ic_gan_tpu/ops/pallas/bias_act.py:92 (the custom_jvp tangent of _forward)",
-        launches=sg2_run["launches"]["B4bwd"] + loop["launches"]["B4bwd"],
-        launches_by_path=by_path(0, 0, sg2_run["launches"]["B4bwd"], loop["launches"]["B4bwd"]),
+        launches=sg2_run["launches"]["B4bwd"] + loop["launches"]["B4bwd"]
+        + apps["projector"]["launches"]["B4bwd"],
+        launches_by_path=by_path(0, 0, sg2_run["launches"]["B4bwd"], loop["launches"]["B4bwd"],
+                                 projector=apps["projector"]["launches"]["B4bwd"]),
+        launches_per_projector_step=apps["projector"]["per_step"]["B4bwd"],
         launches_per_step={k: v["B4bwd"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
         launches_per_loop_step=per_loop_step("B4bwd"),
         max_abs_err=sg2_err["B4bwd"], ms=b4b["kernel_ms"], plain_ms=b4b["plain_ms"],

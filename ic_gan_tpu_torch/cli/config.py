@@ -55,9 +55,8 @@ SUPERSEDED_KEYS = {
 # The BigGAN keys that ``cli/train.py`` reads, through ``split_config``
 # (model, train step, trainer, data), ``name_from_config`` (the experiment
 # name's tokens), ``main`` itself and its eval (``eval.pipeline.
-# make_train_eval_fn``).  The JAX package's registry also holds the keys of
-# apps the port does not have yet (ROADMAP.md A.15); here they warn, as
-# every key this CLI would drop.
+# make_train_eval_fn``).  The other apps' keys (``INFERENCE_KEYS``,
+# ``APP_KEYS``) warn here, as every key this CLI would drop.
 BIGGAN_KEYS = {
     # model geometry
     "model", "resolution", "n_classes", "G_ch", "D_ch", "dim_z",
@@ -111,6 +110,25 @@ INFERENCE_KEYS = {
     "ppl_num_samples", "run_dir",
 }
 
+# Read by the sheet, projection, CLIP-guidance, TFHub and official-eval CLIs
+# (``cli/visualize.py``, ``projector.py``, ``clip_guided.py``,
+# ``convert_tfhub.py``, ``official_eval.py``), known wherever the inference
+# keys are.
+APP_KEYS = {
+    # visualize (ref sample.py, style_mixing.py) and the projector
+    "mode", "sample_sheets", "sample_interps", "sample_random", "sample_sheet_folder_num",
+    "num_midpoints", "num_rows", "row_seeds", "col_seeds", "col_styles",
+    "input_feature_index", "target", "num_steps", "w_avg_samples",
+    # CLIP-guided search (the colab's knobs)
+    "prompt", "clip_weights", "bpe_path", "instance_features_npy", "class_index",
+    "optimizer", "pop_size", "iterations", "terminal_iterations", "truncation",
+    "augmentations", "learning_rate", "noise_normality_loss", "out",
+    # TFHub conversion
+    "dump", "pth_out", "sample_grid", "sample_batch", "no_ema",
+    # official TF1 eval
+    "pb_path", "samples", "pool_npz", "use_ground_truth_data", "fid_a", "fid_b", "split",
+}
+
 # Supported only at the reference default; anything else warns.
 DEFAULT_ONLY_KEYS = {
     "G_param": "SN", "D_param": "SN",           # only spectral norm
@@ -131,15 +149,15 @@ def validate_config(cfg: Dict[str, Any], backbone: str = "stylegan2",
     """Warn on every key of ``cfg`` that the ``backbone``'s CLI would drop:
     for ``stylegan2`` the keys ``cli/train_stylegan2.py`` reads; for
     ``biggan`` the keys ``cli/train.py`` reads (with ``inference``, also
-    those of the inference CLIs), and a default-only key away from its
-    reference value.  Returns the problem strings."""
+    those of the inference and the other apps' CLIs), and a default-only
+    key away from its reference value.  Returns the problem strings."""
     problems = []
     if backbone == "stylegan2":
         known = SG2_KEYS | DATA_KEYS | RUN_KEYS | SUPERSEDED_KEYS
     else:
         known = BIGGAN_KEYS | SUPERSEDED_KEYS | set(DEFAULT_ONLY_KEYS)
         if inference:
-            known |= INFERENCE_KEYS
+            known |= INFERENCE_KEYS | APP_KEYS
     for key, value in cfg.items():
         if backbone != "stylegan2" and key in DEFAULT_ONLY_KEYS:
             allowed = DEFAULT_ONLY_KEYS[key]

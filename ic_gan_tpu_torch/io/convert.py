@@ -419,3 +419,35 @@ def vgg_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             key, value = path[0], _ident(value)
         out[key] = torch.from_numpy(np.asarray(value, np.float32))
     return out
+
+
+# The inverse of ``ic_gan_tpu/models/clip.py:load_openai_clip``: Flax CLIP
+# params (``visual``/``text`` with ``resblocks_{i}``; Dense kernels (in, out),
+# LayerNorm ``scale``) → OpenAI's state-dict names, which the port's CLIP
+# carries.
+
+
+def _clip_leaf(prefix: str, path: Path, value) -> Tuple[str, np.ndarray]:
+    *mods, leaf = path
+    mods = [{"c_fc": "mlp.c_fc", "c_proj": "mlp.c_proj"}.get(m, m) for m in mods]
+    if mods and mods[0].startswith("resblocks_"):
+        mods[0] = "transformer.resblocks." + mods[0][len("resblocks_"):]
+    name = ".".join(([prefix] if prefix else []) + mods)
+    if leaf == "kernel":
+        return f"{name}.weight", _t_conv(value) if np.ndim(value) == 4 else _t_linear(value)
+    leaf = "weight" if leaf == "scale" else leaf
+    return (f"{name}.{leaf}" if name else leaf), _ident(value)
+
+
+def clip_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``CLIP`` state dict (CPU tensors, OpenAI's names) from the
+    JAX CLIP variables (``{"params": ...}``)."""
+    params = variables["params"]
+    out = {"logit_scale": torch.from_numpy(np.array(params["logit_scale"], np.float32))}
+    for tower, prefix in (("visual", "visual"), ("text", "")):
+        for path, value in _flatten(params[tower]).items():
+            if path == ("token_embedding",):
+                path = ("token_embedding", "weight")
+            key, value = _clip_leaf(prefix, path, value)
+            out[key] = torch.from_numpy(np.array(value, np.float32))
+    return out

@@ -85,9 +85,14 @@ def _load_module(kind: str, weights_dir: str, name: str, suffix: str, cfg, devic
     if cfg is None:
         sd_name = f"state_dict{('_' + suffix) if suffix else ''}.pth"
         cfg = config_from_state_dict(_load(os.path.join(weights_dir, sd_name))["config"])
+    return _module_from_state_dict(kind, load_pth_bundle(weights_dir, name, suffix), cfg,
+                                   device, strict, f"{name} bundle")
+
+
+def _module_from_state_dict(kind: str, state_dict, cfg, device, strict: bool, what: str):
     cls = model_classes(cfg)[kind == "D"]
     net = skip_init(cls, cfg, device=resolve_device(device))
-    result = net.load_state_dict(load_pth_bundle(weights_dir, name, suffix), strict=False)
+    result = net.load_state_dict(state_dict, strict=False)
     missing = []
     for key in result.missing_keys:
         if key.endswith("accum_counter"):
@@ -96,8 +101,18 @@ def _load_module(kind: str, weights_dir: str, name: str, suffix: str, cfg, devic
             missing.append(key)
     unexpected = list(result.unexpected_keys)
     if strict and (missing or unexpected):
-        raise KeyError(f"{name} bundle: missing {missing[:10]}, unexpected {unexpected[:10]}")
+        raise KeyError(f"{what}: missing {missing[:10]}, unexpected {unexpected[:10]}")
     return net, missing, unexpected
+
+
+def load_generator_state_dict(state_dict, cfg, device=None, strict: bool = True
+                              ) -> Tuple[torch.nn.Module, List[str], List[str]]:
+    """A port generator of ``cfg`` (on ``device``, CUDA unless named) holding
+    an upstream-layout G state dict (tensors or numpy arrays), the loader
+    under ``load_generator_from_pth``; returns ``(g, missing,
+    unexpected)`` as it does."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    return _module_from_state_dict("G", sd, cfg, device, strict, "generator state dict")
 
 
 def load_generator_from_pth(weights_dir: str, name: str = "G_ema", suffix: str = "",

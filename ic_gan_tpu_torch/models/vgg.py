@@ -28,6 +28,7 @@ seed, self-consistent but not comparable with published numbers.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -270,8 +271,12 @@ class LPIPSEvaluator:
         self.net.to(self.device)
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode(), full_f32():
-            x = torch.as_tensor(images, device=self.device, dtype=torch.float32)
+        """The LPIPS feature vectors; differentiable in ``images`` when they
+        require a gradient (the projector's loss), else computed in
+        inference mode."""
+        x = torch.as_tensor(images, device=self.device, dtype=torch.float32)
+        mode = contextlib.nullcontext() if x.requires_grad else torch.inference_mode()
+        with mode, full_f32():
             return self.net.lpips_features((x + 1.0) * 127.5)
 
     def distance(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

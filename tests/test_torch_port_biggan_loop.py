@@ -241,8 +241,9 @@ def test_split_config_matches_jax():
     assert ttr.batch_size == 256 and ttr.experiment_name == tconfig.name_from_config(cfg) \
         == jconfig.name_from_config(cfg)
     assert td == jd
-    # The warnings both packages give for the keys the port reads; a key of
-    # an app the port does not have yet warns in the port alone.
+    # The warnings both packages give for the keys the port reads; another
+    # app's key warns in the port's training config alone (JAX keeps one
+    # registry for every app), and not where the apps' keys are known.
     bad = dict(cfg, G_nl="elu", no_such_key=1)
     with pytest.warns(UserWarning):
         assert tconfig.validate_config(bad, backbone="biggan") == jconfig.validate_config(bad)
@@ -250,6 +251,8 @@ def test_split_config_matches_jax():
         assert len(tconfig.validate_config(dict(cfg, prompt="a", max_steps=3),
                                            backbone="biggan")) == 2
     assert jconfig.validate_config(dict(cfg, prompt="a", max_steps=3)) == []
+    assert tconfig.validate_config(dict(cfg, prompt="a", mode="interp"), backbone="biggan",
+                                   inference=True) == []
     # An inference CLI's key warns in a training config and not in its own.
     with pytest.warns(UserWarning, match="'deploy_bf16' would be dropped"):
         tconfig.split_config(dict(cfg, deploy_bf16=True))

@@ -147,6 +147,33 @@ def test_attention_bwd_kernel_matches_plain(shape, dtype):
     _assert_grads_close(got, sagan_attention_bwd_ref(*args), dtype)
 
 
+# The shapes of the TFHub BigGAN-256's attention at 128² (bf16, as its
+# deployment sampler calls it; the plain version holds 256 MiB of f32 logits
+# a sample) and of the CLIP-guided search's f32 G at its population of 50,
+# forward and backward.
+@pytest.mark.parametrize("shape,dtype,atol,backward", [
+    ((2, 16384, 4096, 24, 96), torch.bfloat16, 3e-2, False),
+    ((50, 4096, 1024, 48, 192), torch.float32, 2e-5, True),
+])
+def test_attention_kernels_at_the_tfhub_and_search_shapes(shape, dtype, atol, backward):
+    args = _inputs(shape, dtype)
+    before = sagan_attention_fwd.launches
+    with torch.inference_mode():
+        got = sagan_attention(*args)
+    torch.cuda.synchronize()
+    assert sagan_attention_fwd.launches == before + 1
+    ref = sagan_attention_ref(*args)
+    assert got.dtype == ref.dtype and (got.float() - ref.float()).abs().max().item() <= atol
+    del got, ref
+    if backward:
+        args, lse = _bwd_inputs(shape, dtype)
+        before = sagan_attention_bwd.launches
+        got = sagan_attention_bwd(*args, lse)
+        torch.cuda.synchronize()
+        assert sagan_attention_bwd.launches == before + 1
+        _assert_grads_close(got, sagan_attention_bwd_ref(*args), dtype)
+
+
 # bf16 on the tensor cores: d 24 and dv 96 (k-dimension padded to 32), d and
 # dv off the 16-byte rows (d % 8 != 0: the element-wise load path), ragged
 # Lq and Lk.

@@ -1,10 +1,11 @@
 """The port's IC-GAN BigGAN generator against the JAX package.
 
 One JAX generator at toy geometry (res 32, G_ch 16, attention at 16², so
-Lq 256, Lk 64, d 8, dv 32) with its weights and statistics perturbed from
-numpy (gamma non-zero so attention shows, batch-norm statistics off their
-init, one ``accum_counter`` set), converted to the port's ``state_dict`` and
-run through both packages on the CPU.
+Lq 256, Lk 64, d 8, dv 32) with its variables drawn from numpy on the
+shapes of its init (no init compile; biases and gains where the init
+leaves them, gamma non-zero so attention shows, batch-norm statistics off
+their init, one ``accum_counter`` set), converted to the port's
+``state_dict`` and run through both packages on the CPU.
 """
 
 import ast
@@ -15,7 +16,6 @@ import pytest
 import torch
 from torch.nn.utils import skip_init
 
-import jax
 import jax.numpy as jnp
 
 from ic_gan_tpu.io import deploy as jdeploy
@@ -26,7 +26,7 @@ from ic_gan_tpu_torch.io.convert import generator_state_dict_from_jax
 from ic_gan_tpu_torch.models import biggan as tbiggan
 from ic_gan_tpu_torch.models.layers import ConditionalBatchNorm, SelfAttention
 from ic_gan_tpu_torch.ops.spectral_norm import spectral_normalize
-from test_torch_port_classcond import _one_torch_thread, cheap_jit  # noqa: F401
+from test_torch_port_classcond import _one_torch_thread, cheap_jit, numpy_variables  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 4
@@ -68,15 +68,26 @@ def _perturb(variables, rng, leaves):
     return walk(variables, ())
 
 
+def _at_init(variables, leaves):
+    """Each ``bias`` leaf zero and each ``gain`` leaf one, as the init."""
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else
+                (jnp.full_like(v, 1.0 if k == "gain" else 0.0) if k in leaves else v)
+                for k, v in node.items()}
+    return walk(variables)
+
+
 @pytest.fixture(scope="module")
 def jax_model():
     rng = np.random.RandomState(0)
     z = rng.randn(BATCH, JCFG.effective_dim_z).astype(np.float32)
     feats = rng.randn(BATCH, JCFG.instance_sz).astype(np.float32)
     g = jbiggan.Generator(JCFG)
-    variables = cheap_jit(lambda: g.init(jax.random.PRNGKey(0), jnp.asarray(z), None,
-                                       jnp.asarray(feats), train=False))()
+    # Variables on the init's shapes, drawn with numpy (no init compile), with
+    # the biases and gains where the init leaves them.
+    variables = numpy_variables(g, rng, jnp.asarray(z), None, jnp.asarray(feats))
     variables = _perturb(variables, rng, ("mean", "var", "gamma"))
+    variables = _at_init(variables, ("bias", "gain"))
     bn = variables["batch_stats"]["block_0"]["bn1"]["bn"]
     # Standing statistics: sums over two accumulations.
     bn.update(accum_counter=jnp.asarray([2.0]), mean=bn["mean"] * 2.0,
@@ -325,7 +336,9 @@ def test_port_imports_no_jax():
     # trainer and its CLI), the eval stack's (Inception, eval/) and the
     # inference slice's (BigGAN-deep, ResNet-50, the sampling CLIs) and the
     # data-preparation and eval-CLI slice's (readers, COCO tools, VGG16) and the
-    # int8 serving slice's (io/quant.py, ops/int8_conv.py) included.
+    # int8 serving slice's (io/quant.py, ops/int8_conv.py) and the last CLIs'
+    # and pretrained-weight paths' (sheets, projector, log plots, CLIP and its
+    # guided search, the tokenizer, CMA-ES, TFHub, the TF1 Inception) included.
     rel = {os.path.relpath(f, os.path.join(ROOT, "ic_gan_tpu_torch")) for f in files}
     assert {"data/ada.py", "data/fast_warp.py", "ops/row_shift.py", "ops/bias_act.py",
             "ops/conv_resample.py", "models/stylegan2.py", "train/stylegan2_step.py",
@@ -340,7 +353,10 @@ def test_port_imports_no_jax():
             "data/image_datasets.py", "io/lmdb_reader.py", "data/archive_readers.py",
             "cli/prepare_data.py", "cli/store_coco_images.py", "models/vgg.py",
             "io/convert.py", "cli/test.py", "cli/calc_metrics.py", "io/quant.py",
-            "ops/int8_conv.py"} <= rel
+            "ops/int8_conv.py", "cli/visualize.py", "cli/projector.py", "cli/plot_logs.py",
+            "utils/cma_es.py", "data/tokenizer.py", "models/clip.py", "cli/clip_guided.py",
+            "io/tfhub_import.py", "cli/convert_tfhub.py", "eval/tf_inception.py",
+            "cli/official_eval.py"} <= rel
     bad = {(os.path.relpath(f, ROOT), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad
