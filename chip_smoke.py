@@ -142,7 +142,21 @@ Phases, run in order; any failure ends the run with a non-zero exit:
    ``fid_a``/``fid_b`` path, the card against the CPU executor); then
    ``plot_logs``' series of phases 12 and 13.  Phases 3 and 4 hold B1 at
    the TFHub shape and B1 and B2 in f32 at the search's, and time them at
-   full N.
+   full N;
+20. the batch loader and data parallelism: (a) ``data.loader.normalize_batch``
+   on 1,024 uint8 256² images at batch 256, both formulas with and without
+   the flip, bit for bit against the host formulas, and its img/s and bytes
+   copied against the f32 path it replaced, beside phase 13's loop and
+   phase 17's moments img/s (both read through it); (b) NCCL at world size
+   1: phase 7's BigGAN in f32 and phase 10's StyleGAN2-ADA in f32 (a main
+   and a reg step), each data-parallel against the plain step from the same
+   state and draws at phases 8's and 11's bars, B1/B2 and B3/B4 counted,
+   ms/step of both; the StyleGAN2 steps again at phase 10's bf16
+   resolutions, the data-parallel and a second plain step each against the
+   plain one, logged; (c) two processes on the one card over gloo at
+   ``dryrun_multichip``'s toy geometry in f32 (attention in D, ADA 'bgc' on
+   the fast geometry), the BigGAN and StyleGAN2-ADA legs against one rank on
+   the global batch.
 
 ``--profile`` adds device-time breakdowns of one sampler batch, one BigGAN
 train step, one StyleGAN2 main and reg step, one eval batch (G and
@@ -179,6 +193,7 @@ from torch.nn.utils import skip_init
 
 from ic_gan_tpu_torch.cli import plot_logs
 from ic_gan_tpu_torch.data.ada import AugmentPipe
+from ic_gan_tpu_torch.data import loader as data_loader
 from ic_gan_tpu_torch.data.augment import augment_draws
 from ic_gan_tpu_torch.cli import train_stylegan2 as sg2_cli
 from ic_gan_tpu_torch.data.datasets import Batch
@@ -214,6 +229,7 @@ from ic_gan_tpu_torch.ops.attention import (
     sagan_attention_fwd,
     sagan_attention_ref,
 )
+from ic_gan_tpu_torch.parallel.mesh import shard_batch
 from ic_gan_tpu_torch.train.state import GANTrainState
 from ic_gan_tpu_torch.train.step import TrainConfig, make_train_step
 from ic_gan_tpu_torch.train import stylegan2_trainer as sg2_loop
@@ -2152,19 +2168,23 @@ def phase_sg2_loop(device) -> dict:
 
 
 class BigGANCardDataset:
-    """``BIGGAN_LOOP_IMAGES`` images in [-1, 1], class labels and unit
-    instance features drawn from a seed on the card, behind the dataset
-    surface the BigGAN trainer reads (``rng``, ``which_nn_balance``,
-    ``sample_batch``, ``sample_conditioning_instance_balance``, ``len``);
-    indices come from ``rng``, a numpy generator the trainer reseeds each
-    epoch and checkpoints, as an ``HDF5Dataset``'s."""
+    """``BIGGAN_LOOP_IMAGES`` uint8 images in host memory, read through the
+    batch loader (``data.loader.normalize_batch``) as an ``HDF5Dataset``
+    reads its file's, and class labels and unit instance features drawn
+    from a seed on the card, behind the dataset surface the BigGAN trainer
+    reads (``rng``, ``which_nn_balance``, ``sample_batch``,
+    ``sample_conditioning_instance_balance``, ``len``); indices come from
+    ``rng``, a numpy generator the trainer reseeds each epoch and
+    checkpoints, as an ``HDF5Dataset``'s."""
 
     which_nn_balance = "instance_balance"
 
     def __init__(self, res, n_classes, feat_dim, device, seed):
         gen = torch.Generator(device=device).manual_seed(seed)
         n = BIGGAN_LOOP_IMAGES
-        self.images = torch.rand((n, 3, res, res), generator=gen, device=device) * 2 - 1
+        self.device = device
+        self.images = np.random.default_rng(seed).integers(0, 256, (n, 3, res, res),
+                                                           dtype=np.uint8)
         self.labels = torch.randint(0, n_classes, (n,), generator=gen, device=device)
         self.feats = F.normalize(torch.randn((n, feat_dim), generator=gen, device=device), dim=1)
         self.rng = np.random.default_rng(seed)
@@ -2173,15 +2193,16 @@ class BigGANCardDataset:
         return BIGGAN_LOOP_IMAGES
 
     def _draw(self, n):
-        return torch.as_tensor(self.rng.integers(0, BIGGAN_LOOP_IMAGES, n),
-                               device=self.images.device)
+        return self.rng.integers(0, BIGGAN_LOOP_IMAGES, n)
 
     def sample_batch(self, n, weights=None):
         i, j = self._draw(n), self._draw(n)
-        return Batch(self.images[i], self.labels[i], self.feats[j], None)
+        images = data_loader.normalize_batch(self.images[i], device=self.device)
+        ti, tj = (torch.as_tensor(a, device=self.device) for a in (i, j))
+        return Batch(images, self.labels[ti], self.feats[tj], None)
 
     def sample_conditioning_instance_balance(self, n, weights=None):
-        i = self._draw(n)
+        i = torch.as_tensor(self._draw(n), device=self.device)
         return self.labels[i], self.feats[i]
 
 
@@ -3134,8 +3155,9 @@ def memory_dataset(make):
 class MemoryDataset:
     """uint8 NCHW images and their unit instance features in host memory,
     behind the methods the eval reads on an ``HDF5Dataset``: real images
-    through ``_get_images``/``_norm`` (its formula), instance-balanced
-    conditioning drawn from a numpy stream ``rng``."""
+    through ``_get_images`` (the eval maps them through the batch loader
+    with ``_norm``'s formula), instance-balanced conditioning drawn from a
+    numpy stream ``rng``."""
 
     which_nn_balance = "instance_balance"
     root = "chip_smoke_memory_dataset"
@@ -3150,10 +3172,6 @@ class MemoryDataset:
 
     def _get_images(self, idxs):
         return self.imgs[np.asarray(idxs)]
-
-    @staticmethod
-    def _norm(x):
-        return (x.astype(np.float32) / 255.0 - 0.5) * 2.0
 
     def get_label(self, idxs):
         return np.zeros(len(np.atleast_1d(idxs)), np.int64)
@@ -4569,8 +4587,420 @@ def phase_remaining_clis(device, sg2_logs, biggan_logs, profile=False) -> dict:
     return out
 
 
+# -- phase 20: the batch loader and data parallelism ------------------------------------
+
+LOADER_IMAGES, LOADER_BATCH, LOADER_RES = 1024, 256, 256
+# The world-1 NCCL steps: phase 7's BigGAN in f32 (phase 8's bars hold it
+# against the plain step) and phase 10's StyleGAN2-ADA; timed steps of each.
+DP_TIMED_STEPS = 3
+# Two ranks on the one card over gloo: dryrun_multichip's toy geometry in
+# f32 (attention at 16² in the BigGAN leg's D, so that B1 and B2 run; in G
+# as well, the toy's f32 gradients move by ~1 % of their size between one
+# rank and two on the CPU, where f32 against f64 differs by more than their
+# size: that G is ill-conditioned in f32.  The 'bgc' ADA pipe on the fast
+# geometry in the StyleGAN2 leg, so that B3 runs).
+DP_WORLD = 2
+DP_BIGGAN = dict(resolution=32, n_classes=10, G_ch=8, D_ch=8, dim_z=20, G_attn="0",
+                 D_attn="16", shared_dim=16, shared_dim_feat=24, instance_sz=32)
+DP_SG2 = dict(img_resolution=8, z_dim=8, c_dim=0, h_dim=12, w_dim=16, channel_base=512,
+              channel_max=32, num_fp16_res=0, conv_clamp=None, num_mapping_layers=2,
+              mbstd_group_size=2)
+# f32 on the card, two ranks against one: raw gradients max|Δ| ≤ 1e-3 of the
+# tensor's max|g| plus 1e-5 of the network's (phase 8's floor, for the
+# biases before a batch norm, whose true gradient is 0), scalars 1e-4.  The
+# sound runs read at most 2.4e-5 of the tensor's max; minibatch std taken
+# per rank reads 8.2e-3 in the float64 CPU test.
+DP_GRAD_REL, DP_GRAD_FLOOR, DP_SCALAR_REL = 1e-3, 1e-5, 1e-4
+DP_DIR = os.path.join(str(_build.BUILD_DIR), "chip_smoke_dp")
+DP_TIMEOUT_S = 300
+
+
+def _bits(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+def _loader_phase(device, loop_ips, moments_ips) -> dict:
+    """(a) ``normalize_batch`` bit for bit against the host formulas, and
+    its throughput against the f32 path it replaced (the formula on the
+    host, float32 copied to the card), in turns."""
+    rng = np.random.default_rng(95)
+    u8 = rng.integers(0, 256, (LOADER_IMAGES, 3, LOADER_RES, LOADER_RES), dtype=np.uint8)
+    b = u8[:LOADER_BATCH]
+    mask = rng.integers(0, 2, LOADER_BATCH).astype(np.uint8)
+    scale = np.float32(2.0) / np.float32(255.0)
+    for formula in data_loader.FORMULAS:
+        for flip in (None, mask):
+            x = b.copy()
+            if flip is not None:
+                x[flip == 1] = x[flip == 1][:, :, :, ::-1]
+            x = x.astype(np.float32)
+            want = x * scale + np.float32(-1.0) if formula == "loader" \
+                else (x / 255.0 - 0.5) * 2.0
+            got = data_loader.normalize_batch(b, flip, True, device=device, formula=formula)
+            if got.device.type != device.type or not np.array_equal(_bits(got.cpu().numpy()),
+                                                               _bits(want)):
+                raise AssertionError(f"loader {formula} flip {flip is not None}: not the host "
+                                     "formula bit for bit")
+
+    def f32_path():
+        for lo in range(0, LOADER_IMAGES, LOADER_BATCH):
+            torch.from_numpy(u8[lo:lo + LOADER_BATCH].astype(np.float32) * scale
+                             + np.float32(-1.0)).to(device)
+        sync()
+
+    def u8_path():
+        for lo in range(0, LOADER_IMAGES, LOADER_BATCH):
+            data_loader.normalize_batch(u8[lo:lo + LOADER_BATCH], None, True, device=device)
+        sync()
+
+    paths = {"f32": f32_path, "loader": u8_path}
+    times = {k: [] for k in paths}
+    for name in ("f32", "loader", "f32", "loader", "loader", "f32"):
+        t0 = time.perf_counter()
+        paths[name]()
+        times[name].append(time.perf_counter() - t0)
+    ips = {k: LOADER_IMAGES / min(v[1:]) for k, v in times.items()}   # the first is a warm-up
+    nbytes = dict(f32=4 * u8.size, loader=u8.size)
+    log_card(f"phase 20 (a) loader: both formulas, with and without the flip, equal to the host "
+             f"formulas bit for bit on the card; {LOADER_IMAGES} uint8 images at "
+             f"{LOADER_RES}^2 in batches of {LOADER_BATCH}: loader {ips['loader']:.1f} img/s "
+             f"copying {nbytes['loader'] / 2 ** 20:.0f} MiB, the f32 path {ips['f32']:.1f} img/s "
+             f"copying {nbytes['f32'] / 2 ** 20:.0f} MiB (best of 2 after a warm-up, in turns); "
+             f"through the loader: phase 13's loop "
+             + ", ".join(f"{e:.1f}" for e in loop_ips)
+             + f" img/s an epoch, phase 17's moments {moments_ips:.1f} img/s")
+    return dict(img_per_s=ips, bytes=nbytes, loop_img_per_s=loop_ips,
+                moments_img_per_s=moments_ips)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _grad_gap(got: dict, ref: dict, rel: float, floor: float, what: str,
+              abs_floor: float = 0.0) -> float:
+    """Worst |Δ| of the gradients against ``rel``·max|ref| + ``floor``·(the
+    network's largest) + ``abs_floor``, relative to the tensor's max (or the
+    floor's share); raises past the bar."""
+    worst = 0.0
+    for which in ("g_grads", "d_grads"):
+        top = max(v.abs().max().item() for v in ref[which].values())
+        for k, r in ref[which].items():
+            if k.endswith("noise_strength"):
+                continue
+            err = (got[which][k].to(r.device) - r).abs().max().item()
+            rmax = r.abs().max().item()
+            if not err <= rel * rmax + floor * top + abs_floor:
+                raise AssertionError(f"{what} {which} {k}: max|Δ| {err:.3e} (max|ref| {rmax:.3e})")
+            worst = max(worst, err / max(rmax, floor * top / rel, 1e-30))
+    return worst
+
+
+def _scalar_gap(got: dict, ref: dict, rel: float, what: str) -> float:
+    worst = 0.0
+    for k, v in ref.items():
+        if k in ("g_grads", "d_grads"):
+            continue
+        a, b = float(got[k]), float(v)
+        gap = abs(a - b) / max(abs(b), 1e-6)
+        if not (gap <= rel or a == b):
+            raise AssertionError(f"{what} {k}: {a} against {b}")
+        worst = max(worst, gap)
+    return worst
+
+
+def _timed_steps(step, state, batch, gen) -> float:
+    times = []
+    for _ in range(DP_TIMED_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        sync()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def _world1_biggan(device, mesh) -> dict:
+    """Phase 7's BigGAN in f32, the data-parallel step at world 1 against
+    the plain step from the same state and draws."""
+    cfg, g0, d0 = build_gan(TRAIN_MODEL, torch.float32, device, seed=91)
+    tcfg = TrainConfig(ema_start=0, adam_eps=1e-3)
+    gen = torch.Generator(device=device).manual_seed(92)
+    res, mb = cfg.resolution, TRAIN_MB
+    batch = dict(x=torch.rand((1, mb, 3, res, res), generator=gen, device=device) * 2 - 1,
+                 feats=torch.randn((1, mb, cfg.instance_sz), generator=gen, device=device),
+                 gen_feats=torch.randn((2, mb, cfg.instance_sz), generator=gen, device=device))
+    out = {}
+    for name, m in (("plain", None), ("dp", mesh)):
+        g, d = copy.deepcopy(g0), copy.deepcopy(d0)
+        state = GANTrainState.create(g, d, tcfg.g_optimizer(), tcfg.d_optimizer())
+        reset_counts()
+        _, metrics = make_train_step(tcfg, cfg.effective_dim_z, debug_grads=True, mesh=m)(
+            state, batch, torch.Generator(device=device).manual_seed(93))
+        sync()
+        launches = counts()
+        if launches != dict(B1=4, B2=3, B3=0, B4=0, B4bwd=0):
+            raise AssertionError(f"world-1 BigGAN {name} step launches {launches}: expected "
+                                 "B1 4 and B2 3")
+        ms = _timed_steps(make_train_step(tcfg, cfg.effective_dim_z, mesh=m), state, batch,
+                          torch.Generator(device=device).manual_seed(94))
+        out[name] = dict(metrics=metrics, launches=launches, ms=ms)
+        del g, d, state
+    del g0, d0
+    worst = dict(
+        grads=_grad_gap(out["dp"]["metrics"], out["plain"]["metrics"], PARITY_GRAD_REL,
+                        PARITY_GRAD_FLOOR, "world-1 BigGAN"),
+        losses=_scalar_gap(out["dp"]["metrics"], out["plain"]["metrics"], 1e-4,
+                           "world-1 BigGAN"))
+    return dict(worst=worst, launches=out["dp"]["launches"],
+                ms={k: v["ms"] for k, v in out.items()})
+
+
+def _world1_sg2(device, mesh) -> dict:
+    """Phase 10's StyleGAN2-ADA, a main and a reg step at world 1 against
+    the plain ones from the same state and draws, and the plain step once
+    more against itself (what the card's run-to-run differences give).  In
+    f32 (phase 11's bars are f32's) gated and timed; at phase 10's bf16
+    resolutions logged only, the two readings side by side."""
+    tcfg = SG2TrainConfig()
+    pipe = AugmentPipe.from_spec("bgc", geom_impl="fast")
+    worst, ms, launches = {}, {}, dict(B1=0, B2=0, B3=0, B4=0, B4bwd=0)
+    for kind, model in (("f32", dict(SG2_MODEL, num_fp16_res=0)), ("bf16", SG2_MODEL)):
+        cfg, g0, d0 = build_sg2(model, device, seed=96)
+        gen = torch.Generator(device=device).manual_seed(97)
+        mb, res = SG2_MB, cfg.img_resolution
+        batch = dict(x=torch.rand((mb, 3, res, res), generator=gen, device=device) * 2 - 1,
+                     h=torch.randn((mb, cfg.h_dim), generator=gen, device=device),
+                     gen_h=torch.randn((mb, cfg.h_dim), generator=gen, device=device))
+        expected = sg2_expected_launches(g0, d0)
+        for reg in (False, True):
+            tag = "reg" if reg else "main"
+            out = {}
+            for name, m in (("plain", None), ("dp", mesh), ("plain again", None)):
+                g, d = copy.deepcopy(g0), copy.deepcopy(d0)
+                state = SG2TrainState.create(g, d, tcfg)
+                state.ada_p = torch.full((), SG2_P, device=device)
+                reset_counts()
+                _, metrics = make_sg2_train_step(tcfg, cfg.z_dim, do_pl=reg, do_r1=reg,
+                                                 augment_fn=pipe, debug_grads=True, mesh=m)(
+                    state, batch, torch.Generator(device=device).manual_seed(98))
+                sync()
+                c = counts()
+                want = expected[tag]
+                if (c["B4"], c["B4bwd"], c["B3"]) != (want["B4"], want["B4bwd"],
+                                                       sum(want["B3"].values())):
+                    raise AssertionError(f"world-1 sg2 {kind} {tag} {name} launches {c}, "
+                                         f"expected {want}")
+                if m is not None:
+                    launches = {k: launches[k] + v for k, v in c.items()}
+                if kind == "f32" and name != "plain again":
+                    ms[f"{tag} {name}"] = _timed_steps(
+                        make_sg2_train_step(tcfg, cfg.z_dim, do_pl=reg, do_r1=reg,
+                                            augment_fn=pipe, mesh=m),
+                        state, batch, torch.Generator(device=device).manual_seed(99))
+                out[name] = metrics
+                del g, d, state
+            gated = kind == "f32"
+            worst[f"{kind} {tag} grads"] = _grad_gap(
+                out["dp"], out["plain"], 1e-2 if gated else 1.0, 0.0,
+                f"world-1 sg2 {kind} {tag}", 1e-12 if gated else 1.0)
+            if gated:
+                worst[f"{kind} {tag} losses"] = _scalar_gap(out["dp"], out["plain"], 1e-4,
+                                                            f"world-1 sg2 {kind} {tag}")
+            worst[f"{kind} {tag} grads, plain twice"] = _grad_gap(
+                out["plain again"], out["plain"], 1.0, 0.0, "plain twice", 1.0)
+        del g0, d0
+        torch.cuda.empty_cache()
+    return dict(worst=worst, launches=launches,
+                ms={t: {n: ms[f"{t} {n}"] for n in ("plain", "dp")} for t in ("main", "reg")})
+
+
+def _dp_toy_leg(leg: str, mesh, with_ref: bool) -> dict:
+    """One leg of (c) in a rank: the toy step over the mesh (its kernel
+    launches counted) and, with ``with_ref``, on one rank over the global
+    batch; gradients and metrics on the host."""
+    dev = mesh.device
+    host = lambda m: {k: ({n: t.detach().cpu() for n, t in v.items()} if isinstance(v, dict)  # noqa: E731
+                          else float(v)) for k, v in m.items()}
+    out = {}
+    if leg == "biggan":
+        cfg = BigGANConfig(**DP_BIGGAN)
+        tcfg = TrainConfig(num_D_steps=1, num_D_accumulations=2, num_G_accumulations=2,
+                           ema_start=0, adam_eps=1e-3, DiffAugment=DIFF_AUGMENT, G_ortho=1e-4,
+                           D_ortho=1e-4)
+        _, g0, d0 = build_gan(DP_BIGGAN, torch.float32, dev, seed=101)
+        gen = torch.Generator().manual_seed(102)
+        mb = 2 * mesh.world
+        batch = dict(x=torch.randn((2, mb, 3, 32, 32), generator=gen) * 0.5,
+                     feats=torch.randn((2, mb, cfg.instance_sz), generator=gen),
+                     gen_feats=torch.randn((4, mb, cfg.instance_sz), generator=gen))
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        for name, m in (("ref", None), ("dp", mesh)):
+            if name == "ref" and not with_ref:
+                continue
+            state = GANTrainState.create(copy.deepcopy(g0), copy.deepcopy(d0),
+                                         tcfg.g_optimizer(), tcfg.d_optimizer())
+            reset_counts()
+            _, metrics = make_train_step(tcfg, cfg.effective_dim_z, debug_grads=True, mesh=m)(
+                state, batch if m is None else shard_batch(m, batch, axis=1),
+                torch.Generator(device=dev).manual_seed(103))
+            sync()
+            out[name] = dict(metrics=host(metrics), launches=counts())
+    else:
+        cfg = sg2.StyleGAN2Config(**DP_SG2)
+        _, g0, d0 = build_sg2(DP_SG2, dev, seed=104)
+        tcfg = SG2TrainConfig()
+        pipe = AugmentPipe.from_spec("bgc", geom_impl="fast")
+        gen = torch.Generator().manual_seed(105)
+        n = 2 * mesh.world
+        batch = dict(x=torch.randn((n, 3, 8, 8), generator=gen) * 0.5,
+                     h=torch.randn((n, cfg.h_dim), generator=gen),
+                     gen_h=torch.randn((n, cfg.h_dim), generator=gen))
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        for name, m in (("ref", None), ("dp", mesh)):
+            if name == "ref" and not with_ref:
+                continue
+            state = SG2TrainState.create(copy.deepcopy(g0), copy.deepcopy(d0), tcfg)
+            state.ada_p = torch.full((), SG2_P, device=dev)
+            reset_counts()
+            state, metrics = make_sg2_train_step(tcfg, cfg.z_dim, do_pl=True, do_r1=True,
+                                                 augment_fn=pipe, debug_grads=True, mesh=m)(
+                state, batch if m is None else shard_batch(m, batch),
+                torch.Generator(device=dev).manual_seed(106))
+            sync()
+            metrics = dict(metrics, pl_mean=state.pl_mean, ada_sign_sum=state.ada_sign_sum)
+            out[name] = dict(metrics=host(metrics), launches=counts())
+    return out
+
+
+def dp_worker(rank: int, world: int, init_method: str, out_dir: str, device: str) -> None:
+    """One rank of phase 20 (c): both toy legs over a gloo group on
+    ``device``."""
+    from ic_gan_tpu_torch.parallel.mesh import distributed_init, make_mesh
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    distributed_init(num_processes=world, process_id=rank, init_method=init_method,
+                     backend="gloo", device=device, timeout_s=DP_TIMEOUT_S)
+    mesh = make_mesh(device=device)
+    res = {leg: _dp_toy_leg(leg, mesh, with_ref=rank == 0) for leg in ("biggan", "sg2")}
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _two_ranks(device) -> dict:
+    """Phase 20 (c): ``DP_WORLD`` processes on ``device`` over gloo, the toy
+    legs against one rank on the global batch."""
+    world = DP_WORLD
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    torch.cuda.empty_cache()
+    init = f"file://{os.path.join(DP_DIR, 'rendezvous')}"
+    logs = [open(os.path.join(DP_DIR, f"log{r}.txt"), "w") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                               str(r), str(world), init, DP_DIR, str(device)],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        codes = [p.wait(timeout=DP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if codes != [0] * world:
+        tails = "\n".join(open(os.path.join(DP_DIR, f"log{r}.txt")).read()[-4000:]
+                          for r in range(world))
+        raise AssertionError(f"data-parallel workers exited {codes}:\n{tails}")
+    ranks = [torch.load(os.path.join(DP_DIR, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    worst, launches = {}, dict(B1=0, B2=0, B3=0, B4=0, B4bwd=0)
+    for leg in ("biggan", "sg2"):
+        ref = ranks[0][leg]["ref"]["metrics"]
+        for r, res in enumerate(ranks):
+            got = res[leg]["dp"]["metrics"]
+            worst[f"{leg} grads"] = max(worst.get(f"{leg} grads", 0.0), _grad_gap(
+                got, ref, DP_GRAD_REL, DP_GRAD_FLOOR, f"{world} ranks {leg} rank {r}"))
+            worst[f"{leg} scalars"] = max(worst.get(f"{leg} scalars", 0.0), _scalar_gap(
+                got, ref, DP_SCALAR_REL, f"{world} ranks {leg} rank {r}"))
+            for which in ("g_grads", "d_grads"):
+                if any(not torch.equal(v, ranks[0][leg]["dp"]["metrics"][which][k])
+                       for k, v in got[which].items()):
+                    raise AssertionError(f"{world} ranks {leg}: rank {r}'s {which} differ "
+                                         "from rank 0's")
+            launches = {k: launches[k] + v for k, v in res[leg]["dp"]["launches"].items()}
+        need = ("B1", "B2") if leg == "biggan" else ("B3", "B4", "B4bwd")
+        if any(ranks[r][leg]["dp"]["launches"][k] == 0 for r in range(world) for k in need):
+            raise AssertionError(f"{world} ranks {leg}: a rank launched none of {need}")
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    return dict(worst=worst, launches=launches, wall_s=wall)
+
+
+def phase_data_parallel(device, loop_ips, moments_ips) -> dict:
+    """Phase 20: (a) the loader, (b) NCCL at world size 1 at full width,
+    (c) two ranks on the one card over gloo at toy size."""
+    from ic_gan_tpu_torch.parallel.mesh import distributed_init, make_mesh
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = dict(loader=_loader_phase(device, loop_ips, moments_ips))
+    torch.cuda.empty_cache()
+    distributed_init(coordinator_address=f"127.0.0.1:{_free_port()}", num_processes=1,
+                     process_id=0, device=device)     # NCCL on the card
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # the two steps' convs as one another's
+    try:
+        mesh = make_mesh(device=device)
+        out["biggan"] = _world1_biggan(device, mesh)
+        torch.cuda.empty_cache()
+        out["sg2"] = _world1_sg2(device, mesh)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    bg, sg = out["biggan"], out["sg2"]
+    log_card(f"phase 20 (b) NCCL at world size 1: BigGAN {TRAIN_MODEL['resolution']}^2 ch"
+             f"{TRAIN_MODEL['G_ch']} f32 at microbatch {TRAIN_MB}, data-parallel against plain "
+             f"from one state and draws: worst relative |Δ| grads {bg['worst']['grads']:.3e}, "
+             f"losses {bg['worst']['losses']:.3e} (phase 8's bars); B1 {bg['launches']['B1']} "
+             f"and B2 {bg['launches']['B2']} a step; ms/step plain {bg['ms']['plain']:.2f}, "
+             f"data-parallel {bg['ms']['dp']:.2f} (median of {DP_TIMED_STEPS})")
+    log_card(f"phase 20 (b) NCCL at world size 1: StyleGAN2-ADA {SG2_MODEL['img_resolution']}^2 "
+             f"at microbatch {SG2_MB}, 'bgc' fast at p {SG2_P}: worst relative |Δ| "
+             + ", ".join(f"{k} {v:.3e}" for k, v in sg["worst"].items())
+             + f" (phase 11's bars on f32's data-parallel step; bf16 and plain twice logged "
+             f"only); launches B3 {sg['launches']['B3']}, B4 {sg['launches']['B4']}, B4 "
+             f"backward {sg['launches']['B4bwd']} over the main and reg steps of both; f32 "
+             "ms/step " + ", ".join(f"{t} plain {v['plain']:.2f} data-parallel "
+                                    f"{v['dp']:.2f}" for t, v in sg["ms"].items()))
+    out["two_ranks"] = tr = _two_ranks(device)
+    log_card(f"phase 20 (c) two ranks on the card over gloo, f32, toy geometry, against one "
+             f"rank on the global batch: worst relative |Δ| "
+             + ", ".join(f"{k} {v:.3e}" for k, v in tr["worst"].items())
+             + f" (bars: grads {DP_GRAD_REL:g} of the tensor's max + {DP_GRAD_FLOOR:g} of the "
+             f"network's, scalars {DP_SCALAR_REL:g}); both ranks' gradients equal; launches "
+             f"over both ranks {tr['launches']}; {tr['wall_s']:.1f} s for the two processes")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 20 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     global CARD
+    if argv[:1] == ["--dp-worker"]:     # one rank of phase 20 (c)
+        dp_worker(int(argv[1]), int(argv[2]), argv[3], argv[4], argv[5])
+        return 0
     card = CARD = phase_env()
     device = torch.device("cuda", 0)
     dv256 = phase_build()
@@ -4623,6 +5053,11 @@ def main(argv) -> int:
                   tfhub=apps["tfhub"]["launches"], official_tf1=apps["official_tf1"]["launches"])
     app_b4 = dict(visualize=apps["sg2_sheets"]["launches"],
                   projector=apps["projector"]["launches"]["B4"])
+    dp = phase_data_parallel(device, [e["img_per_s"] for e in bg["epochs"]],
+                             prep["moments_img_per_s"])
+    dp_launches = lambda k: dict(  # noqa: E731
+        dp_world1=dp["biggan"]["launches"][k] + dp["sg2"]["launches"][k],
+        dp_two_ranks=dp["two_ranks"]["launches"][k])
     q_b1 = dict(int8_sampler=sum(int8[k]["launches"] for k in ("biggan", "deep")),
                 exported_sampler=sum(e["launches"] for k in ("biggan", "deep")
                                      for e in int8[k]["exports"]))
@@ -4633,13 +5068,14 @@ def main(argv) -> int:
     by_path = lambda sampler, train_, sg2_train, sg2_loop_=0, biggan_loop_=0, eval_=0, \
         deep_sampler=0, deep_train_=0, deep_loop_=0, inference_=0, test_cli=0, \
         calc_metrics_cli=0, int8_sampler=0, exported_sampler=0, visualize=0, projector=0, \
-        clip_guided=0, tfhub=0, official_tf1=0: dict(  # noqa: E731
+        clip_guided=0, tfhub=0, official_tf1=0, dp_world1=0, dp_two_ranks=0: dict(  # noqa: E731
             sampler=sampler, train=train_, sg2_train=sg2_train, sg2_loop=sg2_loop_,
             biggan_loop=biggan_loop_, eval=eval_, deep_sampler=deep_sampler,
             deep_train=deep_train_, deep_loop=deep_loop_, inference=inference_,
             test_cli=test_cli, calc_metrics_cli=calc_metrics_cli, int8_sampler=int8_sampler,
             exported_sampler=exported_sampler, visualize=visualize, projector=projector,
-            clip_guided=clip_guided, tfhub=tfhub, official_tf1=official_tf1)
+            clip_guided=clip_guided, tfhub=tfhub, official_tf1=official_tf1,
+            dp_world1=dp_world1, dp_two_ranks=dp_two_ranks)
     deep_b1 = dict(deep_sampler=deep_launches, deep_train_=deep_train["launches"]["B1"],
                    deep_loop_=deep_loop["launches"]["B1"], inference_=inference["launches"],
                    test_cli=prep["test_launches"])
@@ -4663,9 +5099,11 @@ def main(argv) -> int:
         source="ic_gan_tpu_torch/csrc/sagan_attention_fwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:56",
         launches=main_run["launches"] + train["fwd"] + bg["launches"]["B1"] + eval_b1
-        + sum(deep_b1.values()) + sum(q_b1.values()) + sum(app_b1.values()),
+        + sum(deep_b1.values()) + sum(q_b1.values()) + sum(app_b1.values())
+        + sum(dp_launches("B1").values()),
         launches_by_path=by_path(main_run["launches"], train["fwd"], 0, 0,
-                                 bg["launches"]["B1"], eval_b1, **deep_b1, **q_b1, **app_b1),
+                                 bg["launches"]["B1"], eval_b1, **deep_b1, **q_b1, **app_b1,
+                                 **dp_launches("B1")),
         launches_per_biggan_loop_step=bg["per_step"]["B1"],
         launches_per_eval_pass={m: r["launches"]["B1"] for m, r in ev["runs"].items()},
         max_abs_err=max_err["fwd"],
@@ -4692,9 +5130,10 @@ def main(argv) -> int:
         source="ic_gan_tpu_torch/csrc/sagan_attention_bwd.cu",
         replaces="ic_gan_tpu/ops/pallas/attention.py:136",
         launches=train["bwd"] + bg["launches"]["B2"] + sum(deep_b2.values())
-        + apps["clip_guided"]["launches"]["B2"],
+        + apps["clip_guided"]["launches"]["B2"] + sum(dp_launches("B2").values()),
         launches_by_path=by_path(0, train["bwd"], 0, 0, bg["launches"]["B2"], **deep_b2,
-                                 clip_guided=apps["clip_guided"]["launches"]["B2"]),
+                                 clip_guided=apps["clip_guided"]["launches"]["B2"],
+                                 **dp_launches("B2")),
         launches_per_biggan_loop_step=bg["per_step"]["B2"],
         max_abs_err=max_err["bwd"],
         ms=b2["kernel_ms"], plain_ms=b2["plain_ms"],
@@ -4707,8 +5146,10 @@ def main(argv) -> int:
     ), dict(
         name="row_shift", route="cuda", source="ic_gan_tpu_torch/csrc/row_shift.cu",
         replaces="ic_gan_tpu/ops/pallas/row_shift.py:104",
-        launches=sg2_run["launches"]["B3"] + loop["launches"]["B3"],
-        launches_by_path=by_path(0, 0, sg2_run["launches"]["B3"], loop["launches"]["B3"]),
+        launches=sg2_run["launches"]["B3"] + loop["launches"]["B3"]
+        + sum(dp_launches("B3").values()),
+        launches_by_path=by_path(0, 0, sg2_run["launches"]["B3"], loop["launches"]["B3"],
+                                 **dp_launches("B3")),
         launches_per_step={k: {o: n // SG2_STEPS for o, n in v["B3_by_order"].items()}
                            for k, v in sg2_run["per_phase"].items()},
         launches_per_loop_step={v: o for v, (_, o) in loop["by_variant"].items()},
@@ -4721,9 +5162,10 @@ def main(argv) -> int:
         name="bias_act", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
         replaces="ic_gan_tpu/ops/pallas/bias_act.py:103",
         launches=sg2_run["launches"]["B4"] + loop["launches"]["B4"] + prep["calc_launches"]
-        + sum(q_b4.values()) + sum(app_b4.values()),
+        + sum(q_b4.values()) + sum(app_b4.values()) + sum(dp_launches("B4").values()),
         launches_by_path=by_path(0, 0, sg2_run["launches"]["B4"], loop["launches"]["B4"],
-                                 calc_metrics_cli=prep["calc_launches"], **q_b4, **app_b4),
+                                 calc_metrics_cli=prep["calc_launches"], **q_b4, **app_b4,
+                                 **dp_launches("B4")),
         launches_per_projector_step=apps["projector"]["per_step"]["B4"],
         int8_and_export=int8["stylegan2"],
         launches_per_step={k: v["B4"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
@@ -4735,9 +5177,10 @@ def main(argv) -> int:
         name="bias_act_bwd", route="cuda", source="ic_gan_tpu_torch/csrc/bias_act.cu",
         replaces="ic_gan_tpu/ops/pallas/bias_act.py:92 (the custom_jvp tangent of _forward)",
         launches=sg2_run["launches"]["B4bwd"] + loop["launches"]["B4bwd"]
-        + apps["projector"]["launches"]["B4bwd"],
+        + apps["projector"]["launches"]["B4bwd"] + sum(dp_launches("B4bwd").values()),
         launches_by_path=by_path(0, 0, sg2_run["launches"]["B4bwd"], loop["launches"]["B4bwd"],
-                                 projector=apps["projector"]["launches"]["B4bwd"]),
+                                 projector=apps["projector"]["launches"]["B4bwd"],
+                                 **dp_launches("B4bwd")),
         launches_per_projector_step=apps["projector"]["per_step"]["B4bwd"],
         launches_per_step={k: v["B4bwd"] // SG2_STEPS for k, v in sg2_run["per_phase"].items()},
         launches_per_loop_step=per_loop_step("B4bwd"),

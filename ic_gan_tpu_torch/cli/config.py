@@ -86,9 +86,10 @@ BIGGAN_KEYS = {
     "hflips", "augment", "load_in_mem_feats", "filter_hd",
     # BigGAN-deep (G_depth, D_depth) and a name token
     "which_train_fn", "G_depth", "D_depth",
-    # main: the config file, a cluster launch (it raises, ROADMAP.md A.9),
+    # main: the config file, a cluster launch (``parallel.mesh.distributed_init``),
     # eval, resume and the epoch length
-    "json_config", "jax_distributed", "num_processes", "eval_metrics",
+    "json_config", "jax_distributed", "num_processes", "coordinator_address", "process_id",
+    "eval_metrics",
     "inception_weights", "num_inception_images", "eval_batch_size", "eval_bf16",
     "resume", "load_weights", "steps_per_epoch",
 }

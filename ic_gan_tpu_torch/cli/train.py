@@ -3,11 +3,16 @@
 
     python -m ic_gan_tpu_torch.cli.train --json_config config.json \\
         [--set key=value ...] [--device cuda]
+    torchrun --nproc_per_node 8 -m ic_gan_tpu_torch.cli.train --json_config ...
 
 Accepts the reference's published BigGAN JSON configs (e.g.
 ``config_files/ImageNet/IC-GAN/icgan_res64.json``).  Runs on CUDA unless
-``--device`` names another device, on one process: a cluster launch waits
-for data parallelism (ROADMAP.md A.9).  ``steps_per_epoch`` caps each epoch
+``--device`` names another device.  A cluster launch trains data-parallel,
+one process per device: under torchrun (its ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT`` and ``LOCAL_RANK``), or with the config's
+``jax_distributed``, ``coordinator_address`` ("host:port"),
+``num_processes`` and ``process_id``, as the JAX CLI reads them
+(``parallel.mesh.distributed_init``).  ``steps_per_epoch`` caps each epoch
 (default: the dataset's size over the images of a step); ``resume`` or
 ``load_weights`` (a checkpoint suffix) continue from a saved state.  With
 ``eval_metrics`` (the default) the trainer evaluates FID and IS every
@@ -29,11 +34,14 @@ def main(argv=None):
     flags = argparse.ArgumentParser(add_help=False)
     flags.add_argument("--device", type=str, default="cuda")
     device = flags.parse_known_args(argv)[0].device
-    if (cfg.get("jax_distributed", False) or (cfg.get("num_processes") or 1) > 1
+    if (cfg.get("jax_distributed", False) or cfg.get("coordinator_address")
             or int(os.environ.get("WORLD_SIZE", "1")) > 1):
-        raise NotImplementedError(
-            "a multi-process launch needs data parallelism, which is not ported yet "
-            "(ROADMAP.md A.9)")
+        from ic_gan_tpu_torch.parallel.mesh import distributed_init, local_device
+
+        device = local_device(device)
+        distributed_init(coordinator_address=cfg.get("coordinator_address"),
+                         num_processes=cfg.get("num_processes"),
+                         process_id=cfg.get("process_id"), device=device)
 
     model_cfg, train_cfg, trainer_cfg, data_kwargs = split_config(cfg)
 

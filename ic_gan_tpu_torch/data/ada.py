@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ic_gan_tpu_torch.data.fast_warp import affine_warp
 from ic_gan_tpu_torch.ops.resample import downsample2d, setup_filter, upsample2d
+from ic_gan_tpu_torch.parallel import collectives
 
 # Symlet wavelets of the reference (augment.py:24-50).
 WAVELETS = {
@@ -210,11 +211,15 @@ class AugmentPipe:
         p = p.to(device=dev, dtype=md) if torch.is_tensor(p) else \
             torch.full((), float(p), device=dev, dtype=md)
 
+        # Per-sample draws: inside ``parallel.collectives.data_parallel``,
+        # the global batch's, this rank's rows.
         def uniform(*shape):
-            return torch.rand(shape, generator=generator, device=dev, dtype=md)
+            return collectives.draw_rows(lambda k: torch.rand(
+                (k,) + shape[1:], generator=generator, device=dev, dtype=md), shape[0])
 
         def normal(*shape):
-            return torch.randn(shape, generator=generator, device=dev, dtype=md)
+            return collectives.draw_rows(lambda k: torch.randn(
+                (k,) + shape[1:], generator=generator, device=dev, dtype=md), shape[0])
 
         def full(shape, value):
             return torch.full(shape, float(value), device=dev, dtype=md)
@@ -366,8 +371,7 @@ class AugmentPipe:
             sigma = torch.where(uniform(n, 1, 1, 1) < self.noise * p, sigma, 0.0)
             if dp is not None:
                 sigma = full((n, 1, 1, 1), scipy.special.erfinv(dp) * self.noise_std)
-            images = images + torch.randn(images.shape, generator=generator, device=dev,
-                                          dtype=md) * sigma
+            images = images + normal(*images.shape) * sigma
         if self.cutout > 0:
             size = torch.where(uniform(n, 1, 1, 1) < self.cutout * p,
                                full((n, 2, 1, 1), self.cutout_size), 0.0)

@@ -23,6 +23,8 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
+from ic_gan_tpu_torch.parallel import collectives
+
 
 def rand_brightness(x, u):
     return x + (u.to(x.device, x.dtype) - 0.5).view(-1, 1, 1, 1)
@@ -99,6 +101,12 @@ def _fns(policy: str):
     return [f for p in policy.split(",") for f in AUGMENT_FNS[p]] if policy else []
 
 
+def _rows_like(x, n: int):
+    """A stand-in for an ``n``-row batch of ``x``'s kind (shape, type,
+    device), for its draws; no memory of its own."""
+    return x[:1].expand(n, *x.shape[1:])
+
+
 def augment_draws(policy: str, x, generator: Optional[torch.Generator] = None) -> List:
     """The draws ``diff_augment(x, policy)`` needs, from ``generator`` (on
     ``x``'s device), in policy order."""
@@ -106,13 +114,18 @@ def augment_draws(policy: str, x, generator: Optional[torch.Generator] = None) -
 
 
 def diff_augment(x, policy: str = "", generator: Optional[torch.Generator] = None,
-                 draws: Optional[List] = None):
+                 draws: Optional[List] = None, parts: int = 1):
     """Apply the comma-separated ``policy`` (e.g. ``"color,translation,cutout"``)
     to an NCHW batch, with ``draws`` (one per function, in policy order) or
-    fresh ones from ``generator``."""
+    fresh ones from ``generator``.  ``parts``: ``x`` stacks that many
+    batches (matters only inside ``data_parallel``)."""
     fns = _fns(policy)
     if draws is None:
-        draws = augment_draws(policy, x, generator)
+        # Inside ``parallel.collectives.data_parallel``: the draws of the
+        # ``parts`` global batches, this rank's rows of each.
+        draws = collectives.draw_rows(
+            lambda n: augment_draws(policy, x if n == x.shape[0] else _rows_like(x, n),
+                                    generator), x.shape[0], parts)
     if len(draws) != len(fns):
         raise ValueError(f"policy {policy!r} takes {len(fns)} draws, got {len(draws)}")
     for f, d in zip(fns, draws):

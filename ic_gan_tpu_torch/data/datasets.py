@@ -6,8 +6,9 @@ with k-NN conditioning sampling.  Port of ``ic_gan_tpu/data/datasets.py``
 Host-side numpy, as in the JAX package: an explicit ``np.random.Generator``
 (``default_rng(seed)``) makes every draw, in the same order as the JAX class,
 so a batch equals its batch draw for draw; neighbour tables are dense (N, k)
-arrays and draws are vectorized.  Images come out NCHW (the port's layout),
-float32 in [-1, 1]; the trainer moves them to the device.
+arrays and draws are vectorized.  Images leave the host as stored, uint8,
+and come out NCHW (the port's layout), float32 in [-1, 1] on the dataset's
+device (``data.loader``).
 
 ``h5py`` is imported when an ``HDF5Dataset`` is built, never at module
 import: a machine without it can still import the package (and train from
@@ -21,6 +22,9 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
+
+from ic_gan_tpu_torch.data.loader import normalize_batch
 
 
 def hdf5_filenames(
@@ -62,9 +66,10 @@ def kmeans_filename(resolution, which_dataset="imagenet",
 
 @dataclasses.dataclass
 class Batch:
-    """One training batch (NCHW, normalized)."""
+    """One training batch (NCHW, normalized); the images on the dataset's
+    device (``data.loader``), the rest host arrays."""
 
-    images: np.ndarray                 # (B, 3, H, W) float32 in [-1, 1]
+    images: torch.Tensor               # (B, 3, H, W) float32 in [-1, 1]
     labels: Optional[np.ndarray]       # (B,) int64 or (B, label_dim) one-hot
     features: Optional[np.ndarray]     # (B, F) float32, L2-normalized
     radii: Optional[np.ndarray]        # (B,) float32
@@ -76,8 +81,9 @@ class HDF5Dataset:
     Mirrors ``ILSVRC_HDF5_feats``: ``root`` holds ``imgs`` (N,3,H,W uint8) and
     ``labels``; ``root_feats`` holds ``feats`` (+ optional ``feats_hflip``);
     ``root_nns`` holds ``sample_nns`` [N,k] and ``sample_nns_radius`` [N].
-    Without ``root_nns`` the k-NN table is computed in process on ``device``
-    (CUDA unless named; used for nothing else).
+    Training batches are normalized on ``device`` (CUDA unless named) by
+    ``data.loader.normalize_batch``; without ``root_nns`` the k-NN table is
+    computed in process there too.
     """
 
     def __init__(
@@ -120,6 +126,7 @@ class HDF5Dataset:
         self.which_nn_balance = which_nn_balance
         self.hflip = hflip
         self.rng = np.random.default_rng(seed)
+        self.device = device
 
         with h5py.File(root, "r") as f:
             self.total_imgs = len(f["labels"])
@@ -373,25 +380,22 @@ class HDF5Dataset:
 
     def _norm(self, imgs_u8: np.ndarray) -> np.ndarray:
         """uint8 → float32 in [-1, 1] by the JAX package's formula,
-        (x/255 − 0.5)·2; the eval reads real images through it
-        (``_prepare_images`` rounds as the native loader does, which can
-        differ from this in the last bit)."""
+        (x/255 − 0.5)·2, on the host; the eval reads real images by it
+        through ``data.loader``'s ``"norm"`` table (``_prepare_images``
+        rounds as the native loader does, which can differ from this in the
+        last bit)."""
         imgs = imgs_u8.astype(np.float32)
         if self.apply_norm:
             imgs = (imgs / 255.0 - 0.5) * 2.0
         return imgs
 
-    def _prepare_images(self, idxs: np.ndarray, hflip_mask=None) -> np.ndarray:
-        """uint8 (B, C, H, W) → float32 (B, C, H, W), flipped along W where
-        ``hflip_mask`` is set, mapped to [-1, 1] by x·(2/255) − 1 (the JAX
-        package's native loader's arithmetic, rounded as it rounds)."""
-        x = self._get_images(idxs).astype(np.float32)
-        if hflip_mask is not None:
-            m = np.asarray(hflip_mask, bool)
-            x[m] = x[m, :, :, ::-1]
-        if self.apply_norm:
-            x = x * np.float32(2.0 / 255.0) - np.float32(1.0)
-        return x
+    def _prepare_images(self, idxs: np.ndarray, hflip_mask=None) -> torch.Tensor:
+        """uint8 (B, C, H, W) rows → float32 (B, C, H, W) on the device,
+        flipped along W where ``hflip_mask`` is set, mapped to [-1, 1] by
+        x·(2/255) − 1 (the JAX package's native loader's arithmetic, bit for
+        bit: ``data.loader``)."""
+        return normalize_batch(self._get_images(idxs), hflip_mask, self.apply_norm,
+                               device=self.device)
 
     def _maybe_onehot(self, labels):
         if labels is None:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ic_gan_tpu_torch import resolve_device
+from ic_gan_tpu_torch.data.loader import normalize_batch
 from ic_gan_tpu_torch.eval.fid import (
     FeatureMoments,
     fid_is_device,
@@ -28,6 +29,8 @@ from ic_gan_tpu_torch.eval.fid import (
 from ic_gan_tpu_torch.eval.prdc import compute_prdc
 from ic_gan_tpu_torch.io.deploy import padded_rows
 from ic_gan_tpu_torch.models.inception import InceptionV3, load_torch_inception
+from ic_gan_tpu_torch.parallel import collectives
+from ic_gan_tpu_torch.parallel.mesh import shard_rows
 
 
 def moments_filename(resolution, which_dataset="imagenet", longtail=False,
@@ -56,19 +59,21 @@ class InceptionEvaluator:
     CPU from a generator seeded 0 and so the same on every device: the
     pipeline runs, but its FIDs are only self-consistent, not comparable
     with published ones.  ``deploy_bf16``
-    runs the trunk's convs in bfloat16 (``models/inception.py``).  ``mesh``
-    (the JAX package's sharded eval) waits for data parallelism.
+    runs the trunk's convs in bfloat16 (``models/inception.py``).  With
+    ``mesh`` (``parallel.mesh``) each rank runs its share of a batch, the
+    tail padded with zero rows to a multiple of the ranks as the JAX
+    package pads it, and every rank returns the whole batch's features.
     """
 
     # evaluate_generator reads this to keep the features on the device.
     supports_device_output = True
+    mesh = None
 
     def __init__(self, weights_path: Optional[str] = None, mesh=None,
                  deploy_bf16: bool = False, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded Inception eval needs data parallelism, which is not ported yet "
-                "(ROADMAP.md A.9)")
+        if mesh is not None and not mesh.holds_share:
+            raise ValueError("this rank holds no share of the mesh")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.net = InceptionV3(
             dtype=torch.bfloat16 if deploy_bf16 else torch.float32, device="cpu",
@@ -84,7 +89,14 @@ class InceptionEvaluator:
         float32: numpy arrays, or with ``device_output`` tensors left on the
         device."""
         with torch.inference_mode():
-            pool, logits = self.net(torch.as_tensor(images, device=self.device))
+            x = torch.as_tensor(images, device=self.device)
+            if self.mesh is None:
+                pool, logits = self.net(x)
+            else:
+                n = x.shape[0]
+                x = torch.cat([x, x.new_zeros(((-n) % self.mesh.world,) + x.shape[1:])])
+                pool, logits = (collectives.all_gather(t, self.mesh)[:n]
+                                for t in self.net(shard_rows(x, self.mesh)))
         if device_output:
             return pool, logits
         return pool.cpu().numpy(), logits.cpu().numpy()
@@ -98,12 +110,15 @@ class InceptionEvaluator:
         return np.concatenate(pools), np.concatenate(logits)
 
 
-def _real_batches(dataset, idxs_all, n: int, batch: int):
-    """Real images of the first ``n`` indices in batches, normalized as the
-    JAX package normalizes them (``HDF5Dataset._norm``)."""
+def _real_batches(dataset, idxs_all, n: int, batch: int, device):
+    """Real images of the first ``n`` indices in batches on ``device``,
+    normalized as the JAX package normalizes them (``HDF5Dataset._norm``'s
+    formula through ``data.loader``)."""
     for lo in range(0, n, batch):
         idxs = idxs_all[lo: min(lo + batch, n)]
-        yield idxs, dataset._norm(dataset._get_images(idxs))
+        yield idxs, normalize_batch(dataset._get_images(idxs), None,
+                                    getattr(dataset, "apply_norm", True), device=device,
+                                    formula="norm")
 
 
 def compute_dataset_moments(
@@ -120,7 +135,8 @@ def compute_dataset_moments(
     """
     n = len(dataset) if max_items is None else min(len(dataset), max_items)
     pools, logits, labels = [], [], []
-    for idxs, imgs in _real_batches(dataset, dataset.possible_sampling_idxs, n, batch):
+    for idxs, imgs in _real_batches(dataset, dataset.possible_sampling_idxs, n, batch,
+                                     evaluator.device):
         p, lg = evaluator(imgs)
         pools.append(p)
         logits.append(lg)
@@ -177,7 +193,8 @@ def cached_real_features(
     if os.path.exists(path):
         return np.load(path)["pool"]
     pool = np.concatenate([evaluator(imgs)[0]
-                           for _, imgs in _real_batches(dataset, idxs_all, n, batch)])
+                           for _, imgs in _real_batches(dataset, idxs_all, n, batch,
+                                                        evaluator.device)])
     os.makedirs(cache_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:

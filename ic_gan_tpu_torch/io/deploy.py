@@ -23,6 +23,8 @@ import torch.nn as nn
 from ic_gan_tpu_torch import resolve_device
 from ic_gan_tpu_torch.models.layers import _SpectralNormed
 from ic_gan_tpu_torch.models.stylegan2 import _Filtered
+from ic_gan_tpu_torch.parallel import collectives
+from ic_gan_tpu_torch.parallel.mesh import shard_rows
 
 
 def fold_spectral_norm(module: nn.Module) -> nn.Module:
@@ -101,7 +103,7 @@ def accumulate_standing_stats(
 
 
 def make_sampler(g: nn.Module, *, batch_size: Optional[int] = None, device=None,
-                 **apply_kwargs):
+                 mesh=None, **apply_kwargs):
     """``sampler(z, label=None, feats=None, device_output=False)`` running
     ``g(z, label, feats, **apply_kwargs)`` (g moved to ``device``, default
     CUDA) in batches of ``batch_size``: the StyleGAN2 generator takes
@@ -114,20 +116,35 @@ def make_sampler(g: nn.Module, *, batch_size: Optional[int] = None, device=None,
     its first row, so every launch sees one shape.  Returns NHWC
     images, float32: a numpy array, or with ``device_output`` a tensor left
     on the device for a consumer there.
+
+    With ``mesh`` (``parallel.mesh``; ``batch_size`` must divide by its
+    ranks) every rank passes the same request, generates its share of each
+    batch, and returns the whole request's images.
     """
     device = resolve_device(device)
+    if mesh is not None and not mesh.holds_share:
+        raise ValueError("this rank holds no share of the mesh")
     fold_spectral_norm(g.to(device).eval())
+
+    def run(*args):
+        if mesh is None:
+            return g(*args, **apply_kwargs)
+        with collectives.data_parallel(mesh):   # per-sample draws: the batch's
+            img = g(*(None if a is None else shard_rows(a, mesh) for a in args),
+                    **apply_kwargs)
+        return collectives.all_gather(img, mesh)
 
     def sampler(z, label=None, feats=None, device_output: bool = False):
         n = z.shape[0]
         bs = batch_size or n
+        if mesh is not None and bs % mesh.world:
+            raise ValueError(f"a batch of {bs} does not divide over {mesh.world} ranks")
         outs = []
         with torch.inference_mode():
             for lo in range(0, n, bs):
                 hi = min(lo + bs, n)
                 pad = bs - (hi - lo)
-                img = g(*(padded_rows(a, lo, hi, pad, device) for a in (z, label, feats)),
-                        **apply_kwargs)
+                img = run(*(padded_rows(a, lo, hi, pad, device) for a in (z, label, feats)))
                 outs.append(img[: hi - lo].permute(0, 2, 3, 1))
             out = torch.cat(outs) if len(outs) > 1 else outs[0].contiguous()
         return out if device_output else np.ascontiguousarray(out.cpu().numpy())

@@ -39,6 +39,7 @@ from ic_gan_tpu_torch.ops.resample import (
     upsample_nearest_2x,
 )
 from ic_gan_tpu_torch.ops.spectral_norm import spectral_normalize
+from ic_gan_tpu_torch.parallel import collectives
 
 # Reference argparse defaults (BigGAN_PyTorch/utils.py).
 SN_EPS = 1e-6
@@ -223,25 +224,44 @@ class SNEmbed(_SpectralNormed):
         return F.embedding(idx, self.w_bar().to(self.dtype))
 
 
+def _global_moments(xf, mesh):
+    """(E[x], E[x²], count) per channel over the mesh's global batch: the
+    sums (Σx, Σx², count) of every rank, summed differentiably."""
+    c = xf.shape[1]
+    count = torch.full((1,), float(xf.shape[0] * xf.shape[2] * xf.shape[3]),
+                       dtype=xf.dtype, device=xf.device)
+    sums = collectives.all_reduce(
+        torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), count]), mesh)
+    n = sums[-1]
+    return sums[:c] / n, sums[c:2 * c] / n, n
+
+
 def _batch_norm(m: nn.Module, x, standing: bool):
     """Batch norm over ``m``'s ``stored_mean``/``stored_var``/``accum_counter``
     (``CrossReplicaBatchNorm``'s semantics)."""
     batch_moments = standing or m.training
     if batch_moments:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        v = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+        mesh = collectives.current()
+        if mesh is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            v = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            bessel = n / max(n - 1, 1)
+        else:
+            mean, m2, n = _global_moments(xf, mesh)
+            v = m2 - mean.square()
+            bessel = n / torch.clamp(n - 1, min=1)
         with torch.no_grad():
             if standing:
                 m.stored_mean += mean
                 m.stored_var += v
                 m.accum_counter += 1.0
             else:
-                n = x.shape[0] * x.shape[2] * x.shape[3]
                 mom = BN_MOMENTUM
                 m.stored_mean.copy_((1 - mom) * m.stored_mean + mom * mean)
                 m.stored_var.copy_((1 - mom) * m.stored_var
-                                   + mom * (v * (n / max(n - 1, 1))))
+                                   + mom * (v * bessel))
     else:
         cnt = m.accum_counter[0]
         use_standing = cnt > 0
@@ -268,9 +288,14 @@ def _instance_norm(m: nn.Module, x, batch_moments: bool):
         with torch.no_grad():
             n = x.shape[2] * x.shape[3]
             mom = BN_MOMENTUM
-            m.stored_mean.copy_((1 - mom) * m.stored_mean + mom * mean.mean(dim=(0, 2, 3)))
+            batch_mean, batch_v = mean.mean(dim=(0, 2, 3)), v.mean(dim=(0, 2, 3))
+            mesh = collectives.current()
+            if mesh is not None:   # the averages over the global batch
+                batch_mean, batch_v = (collectives.all_reduce(
+                    torch.stack([batch_mean, batch_v]), mesh) / mesh.world).unbind(0)
+            m.stored_mean.copy_((1 - mom) * m.stored_mean + mom * batch_mean)
             m.stored_var.copy_((1 - mom) * m.stored_var
-                               + mom * v.mean(dim=(0, 2, 3)) * (n / max(n - 1, 1)))
+                               + mom * batch_v * (n / max(n - 1, 1)))
         out = (xf - mean) * torch.rsqrt(v + m.eps)
     else:
         out = ((xf - m.stored_mean[:, None, None])
@@ -314,9 +339,10 @@ class CrossReplicaBatchNorm(nn.Module):
     ``stored_var`` and counts in ``accum_counter``; eval then normalizes with
     the averages.  With a zero counter, eval uses the stored statistics as
     they are.  Statistics stay float32; a low-precision eval normalizes in the
-    compute type (``layers.py:346-352`` of the JAX package).  The moments are
-    this process's batch only: cross-replica moments come with data
-    parallelism (ROADMAP.md A.9).
+    compute type (``layers.py:346-352`` of the JAX package).  Inside
+    ``parallel.collectives.data_parallel`` the moments are the global
+    batch's: every rank's (Σx, Σx², count) summed over the ranks, with their
+    gradient, so the statistics move identically on every rank.
     """
 
     def __init__(self, features: int, eps: float = BN_EPS, device=None):

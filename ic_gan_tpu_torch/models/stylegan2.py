@@ -34,6 +34,8 @@ from ic_gan_tpu_torch.ops.bias_act import activation_funcs, bias_act
 from ic_gan_tpu_torch.ops.conv_resample import conv2d_resample, is_symmetric
 from ic_gan_tpu_torch.ops.int8_conv import conv2d_int8
 from ic_gan_tpu_torch.ops.resample import downsample2d, setup_filter, upsample2d
+from ic_gan_tpu_torch.parallel import collectives
+from ic_gan_tpu_torch.parallel.mesh import shard_rows
 
 SQRT_HALF = math.sqrt(0.5)
 
@@ -247,7 +249,12 @@ class MappingNetwork(nn.Module):
         w_avg = getattr(self, "w_avg", None)
         if update_w_avg and w_avg is not None:
             with torch.no_grad():
-                mean_w = x.detach().mean(dim=0)
+                mesh = collectives.current()
+                if mesh is None:
+                    mean_w = x.detach().mean(dim=0)
+                else:   # the global batch's mean
+                    mean_w = collectives.all_reduce(x.detach().sum(dim=0), mesh) \
+                        / (x.shape[0] * mesh.world)
                 w_avg.copy_(mean_w + (w_avg - mean_w) * self.w_avg_beta)
         if self.num_ws is not None:
             x = x[:, None, :].expand(-1, self.num_ws, -1)
@@ -305,9 +312,10 @@ class SynthesisLayer(_Filtered):
             self.quant_calib = torch.maximum(self.quant_calib, m)
         noise = None
         if self.use_noise and noise_mode == "random":
-            noise = torch.randn((x.shape[0], 1, self.resolution, self.resolution),
-                                device=x.device, generator=generator,
-                                dtype=_f32p(w).dtype) * self.noise_strength
+            noise = collectives.draw_rows(
+                lambda n: torch.randn((n, 1, self.resolution, self.resolution),
+                                      device=x.device, generator=generator,
+                                      dtype=_f32p(w).dtype), x.shape[0]) * self.noise_strength
         elif self.use_noise and noise_mode == "const":
             noise = (self.noise_const * self.noise_strength)[None, None]
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
@@ -500,9 +508,8 @@ class Generator(nn.Module):
                               generator=generator)
 
 
-def minibatch_std(x: torch.Tensor, group_size: Optional[int] = 4,
-                  num_channels: int = 1) -> torch.Tensor:
-    """Minibatch standard-deviation channels (ref ``networks.py:900-927``)."""
+def _mbstd_channels(x: torch.Tensor, group_size: Optional[int],
+                    num_channels: int) -> torch.Tensor:
     n, c, h, w = x.shape
     g = min(group_size, n) if group_size is not None else n
     f = num_channels
@@ -510,7 +517,22 @@ def minibatch_std(x: torch.Tensor, group_size: Optional[int] = 4,
     y = y - y.mean(dim=0, keepdim=True)
     y = torch.sqrt(y.square().mean(dim=0) + 1e-8)
     y = y.mean(dim=(2, 3, 4))                                   # (n/g, F)
-    y = y.repeat(g, 1)[:, :, None, None].expand(n, f, h, w)     # tiled over groups
+    return y.repeat(g, 1)[:, :, None, None].expand(n, f, h, w)  # tiled over groups
+
+
+def minibatch_std(x: torch.Tensor, group_size: Optional[int] = 4,
+                  num_channels: int = 1) -> torch.Tensor:
+    """Minibatch standard-deviation channels (ref ``networks.py:900-927``).
+    Inside ``parallel.collectives.data_parallel`` the groups are the JAX
+    package's over the global batch (``G = min(group_size, N_global)``):
+    the ranks' rows are gathered, with their gradient, and each rank keeps
+    the channels of its own."""
+    mesh = collectives.current()
+    if mesh is None:
+        y = _mbstd_channels(x, group_size, num_channels)
+    else:
+        y = shard_rows(_mbstd_channels(collectives.all_gather(x, mesh), group_size,
+                                       num_channels), mesh)
     return torch.cat([x, y.to(x.dtype)], dim=1)
 
 

@@ -16,6 +16,14 @@ loops are plain Python over eager PyTorch, with gradients accumulated in
 phase (its batch-norm statistics and spectral-norm state still advance, as
 the reference's ``torch.set_grad_enabled(False)`` around G does); D's
 parameters are frozen in the G phase, so only G's gradients are formed.
+
+With a ``mesh`` (``parallel.mesh``) the step is data-parallel with the JAX
+step's global-batch semantics: each rank holds ``mb`` rows of every
+microbatch, draws z and the DiffAugment parameters for the global
+microbatch from the same seeded generator and keeps its rows, backpropagates
+its local sum over the global count, and sums the gradients over the ranks
+before the orthogonal term and the scrub; batch norm takes global moments
+(``models.layers``) and the metrics are global.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import torch.nn as nn
 
 from ic_gan_tpu_torch.data.augment import diff_augment
 from ic_gan_tpu_torch.models.layers import SNEmbed
+from ic_gan_tpu_torch.parallel import collectives
+from ic_gan_tpu_torch.parallel.mesh import Mesh
 from ic_gan_tpu_torch.train import losses as losses_lib
 from ic_gan_tpu_torch.train.state import (
     GANTrainState,
@@ -98,14 +108,18 @@ def ortho_grad_term(module: nn.Module, strength: float,
     return terms
 
 
-def _finish_grads(module: nn.Module, ortho: float, blacklist=()):
+def _finish_grads(module: nn.Module, ortho: float, blacklist=(), mesh: Optional[Mesh] = None):
     """Zero for a parameter that got no gradient (the JAX step's zero
-    cotangent), plus the orthogonal term; then scrubbed.  Returns the
-    non-finite count."""
-    terms = ortho_grad_term(module, ortho, blacklist) if ortho > 0.0 else {}
-    for name, p in module.named_parameters():
+    cotangent), summed over the ``mesh``'s ranks, plus the orthogonal term
+    (once, on the global gradient); then scrubbed.  Returns the non-finite
+    count."""
+    for p in module.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        collectives.all_reduce_grads(module.parameters(), mesh)
+    terms = ortho_grad_term(module, ortho, blacklist) if ortho > 0.0 else {}
+    for name, p in module.named_parameters():
         if name in terms:
             p.grad.add_(terms[name])
     return scrub_grads(module.parameters())
@@ -115,7 +129,8 @@ def _snapshot_grads(module: nn.Module) -> Dict[str, torch.Tensor]:
     return {n: p.grad.detach().clone() for n, p in module.named_parameters()}
 
 
-def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
+def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False,
+                    mesh: Optional[Mesh] = None):
     """The train step ``step(state, batch, generator=None, zs=None,
     aug_draws=None) -> (state, metrics)``; it updates ``state`` in place.
 
@@ -137,6 +152,9 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
     non-finite gradient counts ``D_grad_nonfinite``/``G_grad_nonfinite``, as
     0-d tensors on the device; with ``debug_grads``, the raw post-ortho,
     post-scrub gradients ``d_grads``/``g_grads`` by parameter name.
+
+    With ``mesh``, ``batch`` holds this rank's rows of each microbatch
+    (``mb`` of ``mb·world``), ``zs`` and ``aug_draws`` the global ones.
     """
     d_loss_fn = losses_lib.D_LOSSES[cfg.loss]
     g_loss_fn = losses_lib.G_LOSSES[cfg.loss]
@@ -151,10 +169,23 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
     def cat(a, b):
         return None if a is None else torch.cat([a, b])
 
+    def local(loss):
+        """This rank's part of a loss that is a mean over the global batch."""
+        return loss if mesh is None else loss / mesh.world
+
+    def global_mean(t):
+        return t if mesh is None else collectives.all_reduce(t, mesh) / mesh.world
+
     def train_step(state: GANTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
                    zs: Optional[Sequence[torch.Tensor]] = None,
                    aug_draws: Optional[Sequence] = None):
+        if mesh is None:
+            return step_body(state, batch, generator, zs, aug_draws)
+        with collectives.data_parallel(mesh):
+            return step_body(state, batch, generator, zs, aug_draws)
+
+    def step_body(state, batch, generator, zs, aug_draws):
         g, d = state.g.train(), state.d.train()
         mb = batch["x"].shape[1]
         device = batch["x"].device
@@ -164,13 +195,18 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
 
         def draw_z(i):
             if zs is not None:
-                return zs[i]
-            return torch.randn((mb, dim_z), generator=generator, device=device) \
+                return collectives.draw_rows(lambda _: zs[i], mb)
+            return collectives.draw_rows(
+                lambda n: torch.randn((n, dim_z), generator=generator, device=device), mb) \
                 * math.sqrt(cfg.z_var)
 
-        def augment(x, i):
-            return diff_augment(x, cfg.DiffAugment, generator=generator,
-                                draws=None if aug_draws is None else aug_draws[i])
+        def augment(x, i, parts=1):
+            """DiffAugment of ``x``, ``parts`` microbatches stacked (with a
+            mesh, this rank's rows of the global stack's draws)."""
+            draws = None if aug_draws is None else collectives.draw_rows(
+                lambda _: aug_draws[i], x.shape[0], parts)
+            return diff_augment(x, cfg.DiffAugment, generator=generator, draws=draws,
+                                parts=parts)
 
         metrics = {}
 
@@ -195,19 +231,19 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
                 else:
                     d_in = torch.cat([fake, x_real])
                     if cfg.DiffAugment:
-                        d_in = augment(d_in, i)
+                        d_in = augment(d_in, i, parts=2)
                     d_fake, d_real = d(d_in, cat(gl, dl), cat(gf, df)).split(
                         [z.shape[0], x_real.shape[0]])
                 lr_, lf_ = d_loss_fn(d_fake, d_real)
-                ((lr_ + lf_) / n_acc_d).backward()
+                (local(lr_ + lf_) / n_acc_d).backward()
                 loss_real = loss_real + lr_.detach()
                 loss_fake = loss_fake + lf_.detach()
-            metrics["D_grad_nonfinite"] = _finish_grads(d, cfg.D_ortho)
+            metrics["D_grad_nonfinite"] = _finish_grads(d, cfg.D_ortho, mesh=mesh)
             if debug_grads:
                 metrics["d_grads"] = _snapshot_grads(d)
             state.d_opt.step()
-            metrics["D_loss_real"] = loss_real / n_acc_d
-            metrics["D_loss_fake"] = loss_fake / n_acc_d
+            metrics["D_loss_real"] = global_mean(loss_real / n_acc_d)
+            metrics["D_loss_fake"] = global_mean(loss_fake / n_acc_d)
 
         # ---- G phase ----
         state.g_opt.zero_grad(set_to_none=True)
@@ -223,12 +259,12 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False):
                 if cfg.DiffAugment and not cfg.split_D:
                     fake = augment(fake, i)
                 loss = g_loss_fn(d(fake, gl, gf)) / n_acc_g
-                loss.backward()
+                local(loss).backward()
                 g_loss = g_loss + loss.detach()
-        metrics["G_loss"] = g_loss
+        metrics["G_loss"] = global_mean(g_loss)
         # Blacklist the class embedding (ref train_fns.py:170-175); the
         # match is by substring, as in the JAX package.
-        metrics["G_grad_nonfinite"] = _finish_grads(g, cfg.G_ortho, ("shared",))
+        metrics["G_grad_nonfinite"] = _finish_grads(g, cfg.G_ortho, ("shared",), mesh)
         if debug_grads:
             metrics["g_grads"] = _snapshot_grads(g)
         state.g_opt.step()

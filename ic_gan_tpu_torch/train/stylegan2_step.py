@@ -15,6 +15,16 @@ Differences of form from the JAX step, none of them in what is computed:
 - the random draws come from a ``torch.Generator``; ``draws`` may give the
   step's own (z, z_d, the style-mixing cutoffs and second latents, the PL
   noise) instead, so that a test can replay the JAX draws.
+
+With a ``mesh`` (``parallel.mesh``) the step is data-parallel with the JAX
+step's global-batch semantics: each rank holds its rows of the batch, draws
+z, the mixing draws, the synthesis noise, the augmentation and the PL noise
+for the global batch and keeps its rows; the path-length batch is the first
+``N // pl_batch_shrink`` samples of the global batch, split evenly over the
+ranks; losses are local sums over global counts, the gradients are summed
+over the ranks, and ``pl_mean``, the metrics and ADA's sign statistic are
+global.  The minibatch-std groups and the w average follow
+(``models.stylegan2``).
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn as nn
 
+from ic_gan_tpu_torch.parallel import collectives
+from ic_gan_tpu_torch.parallel.mesh import Mesh, shard_rows
 from ic_gan_tpu_torch.train import losses
 from ic_gan_tpu_torch.train.state import ema_update, frozen, make_optimizer, scrub_grads
 
@@ -126,7 +138,8 @@ def _fill_missing_grads(module: nn.Module):
 
 
 def make_sg2_train_step(cfg: SG2TrainConfig, z_dim: int, do_pl: bool, do_r1: bool,
-                        augment_fn: Optional[Callable] = None, debug_grads: bool = False):
+                        augment_fn: Optional[Callable] = None, debug_grads: bool = False,
+                        mesh: Optional[Mesh] = None):
     """The step ``step(state, batch, generator=None, draws=None) -> (state,
     metrics)``; it updates ``state`` in place.
 
@@ -141,7 +154,17 @@ def make_sg2_train_step(cfg: SG2TrainConfig, z_dim: int, do_pl: bool, do_r1: boo
     ``real_signs``, the non-finite gradient counts, and ``pl_penalty`` /
     ``r1_penalty`` in the phases that run them; with ``debug_grads`` the
     scrubbed raw gradients ``g_grads``/``d_grads`` by parameter name.
+
+    With ``mesh``, ``batch`` holds this rank's rows and ``draws`` the global
+    batch's.
     """
+    world = 1 if mesh is None else mesh.world
+
+    def global_sum(t):
+        return t if mesh is None else collectives.all_reduce(t, mesh)
+
+    def gather(t):
+        return t if t is None or mesh is None else collectives.all_gather(t, mesh)
 
     def draw(g, n, device, generator):
         num_ws, res = g.mapping.num_ws, g.cfg.img_resolution
@@ -169,19 +192,26 @@ def make_sg2_train_step(cfg: SG2TrainConfig, z_dim: int, do_pl: bool, do_r1: boo
             img = augment_fn(img, p, generator)
         return d(img, c, h)
 
-    def head(t, nb):
-        return None if t is None else t[:nb]
-
     def train_step(state: SG2TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[dict] = None):
+        if mesh is None:
+            return step_body(state, batch, generator, draws)
+        with collectives.data_parallel(mesh):
+            return step_body(state, batch, generator, draws)
+
+    def step_body(state, batch, generator, draws):
         g, d = state.g.train(), state.d.train()
         c, h = batch.get("c"), batch.get("h")
         gen_c, gen_h = batch.get("gen_c", c), batch.get("gen_h", h)
         x_real = batch["x"]
         n = x_real.shape[0]
+        n_global = n * world
         if draws is None:
-            draws = draw(g, n, x_real.device, generator)
+            draws = draw(g, n_global, x_real.device, generator)
+        pl_draws = draws   # the global draws, for the path-length rows
+        draws = dict(draws, z=shard_rows(draws["z"], mesh), z_d=shard_rows(draws["z_d"], mesh),
+                     z2s=shard_rows(draws["z2s"], mesh, axis=1))
         metrics = {}
 
         # ---- G phase: Gmain (+ Gpl) ----
@@ -190,25 +220,36 @@ def make_sg2_train_step(cfg: SG2TrainConfig, z_dim: int, do_pl: bool, do_r1: boo
             img = run_G(g, draws["z"], gen_c, gen_h, draws["cutoffs"][0], draws["z2s"][0],
                         True, generator)
             logits = run_D(d, img, gen_c, gen_h, state.ada_p, generator)
-            loss = losses.logistic_g_loss(logits)
-            metrics["G_loss"] = loss.detach()
-            metrics["fake_scores"] = logits.detach().mean()
+            loss = losses.logistic_g_loss(logits) / world
+            metrics["G_loss"] = global_sum(loss.detach())
+            metrics["fake_scores"] = global_sum(logits.detach().mean() / world)
             total = loss
             new_pl_mean = state.pl_mean
             if do_pl and cfg.pl_weight != 0:
-                nb = max(n // cfg.pl_batch_shrink, 1)
-                ws_pl = g.map_ws(draws["z"][:nb], head(gen_c, nb), head(gen_h, nb))
+                nb_global = max(n_global // cfg.pl_batch_shrink, 1)
+                if nb_global % world:
+                    raise ValueError(f"the path-length batch {nb_global} does not divide "
+                                     f"over {world} ranks")
+                # This rank's rows of the global batch's first nb_global.
+                z_pl, c_pl, h_pl = (None if t is None else shard_rows(t[:nb_global], mesh)
+                                    for t in (pl_draws["z"], gather(gen_c), gather(gen_h)))
+                ws_pl = g.map_ws(z_pl, c_pl, h_pl)
                 img_pl = g.synthesize(ws_pl, generator=generator)
-                noise = draws["pl_noise"] / math.sqrt(img_pl.shape[2] * img_pl.shape[3])
+                noise = shard_rows(pl_draws["pl_noise"], mesh) \
+                    / math.sqrt(img_pl.shape[2] * img_pl.shape[3])
                 pl_len = losses.path_lengths(img_pl, ws_pl, noise.to(img_pl.dtype))
                 # The penalty differentiates through the updated mean too, as
                 # upstream's lerp does.
-                new_pl_mean = state.pl_mean + cfg.pl_decay * (pl_len.mean() - state.pl_mean)
-                pl_penalty = (pl_len - new_pl_mean).square().mean()
-                metrics["pl_penalty"] = pl_penalty.detach()
+                pl_len_mean = pl_len.mean() if mesh is None \
+                    else global_sum(pl_len.sum()) / nb_global
+                new_pl_mean = state.pl_mean + cfg.pl_decay * (pl_len_mean - state.pl_mean)
+                pl_penalty = (pl_len - new_pl_mean).square().mean() / world
+                metrics["pl_penalty"] = global_sum(pl_penalty.detach())
                 total = total + pl_penalty * cfg.pl_weight * cfg.G_reg_interval
             total.backward()
         _fill_missing_grads(g)
+        if mesh is not None:
+            collectives.all_reduce_grads(g.parameters(), mesh)
         metrics["G_grad_nonfinite"] = scrub_grads(g.parameters())
         if debug_grads:
             metrics["g_grads"] = _snapshot_grads(g)
@@ -224,17 +265,19 @@ def make_sg2_train_step(cfg: SG2TrainConfig, z_dim: int, do_pl: bool, do_r1: boo
         x_in = x_real.detach().requires_grad_(do_r1 and cfg.r1_gamma != 0)
         real_logits = run_D(d, x_in, c, h, state.ada_p, generator)
         loss_real, loss_fake = losses.logistic_d_loss(fake_logits, real_logits)
-        total = loss_fake + loss_real
-        metrics["D_loss"] = total.detach()
-        metrics["real_scores"] = real_logits.detach().mean()
-        metrics["real_signs"] = torch.sign(real_logits.detach()).mean()
+        total = (loss_fake + loss_real) / world
+        metrics["D_loss"] = global_sum(total.detach())
+        metrics["real_scores"] = global_sum(real_logits.detach().mean() / world)
+        metrics["real_signs"] = global_sum(torch.sign(real_logits.detach()).mean() / world)
         if x_in.requires_grad:
-            r1 = losses.r1_penalty(real_logits, x_in).mean()
-            metrics["r1_penalty"] = r1.detach()
+            r1 = losses.r1_penalty(real_logits, x_in).mean() / world
+            metrics["r1_penalty"] = global_sum(r1.detach())
             total = total + r1 * (cfg.r1_gamma / 2.0) * cfg.D_reg_interval
         # Only D's parameters: the reals' own gradient is not needed.
         total.backward(inputs=[p for p in d.parameters() if p.requires_grad])
         _fill_missing_grads(d)
+        if mesh is not None:
+            collectives.all_reduce_grads(d.parameters(), mesh)
         if cfg.freeze_d_layers > 0:
             mask = freeze_d_mask(d, cfg.freeze_d_layers)
             for name, p in d.named_parameters():
@@ -246,15 +289,15 @@ def make_sg2_train_step(cfg: SG2TrainConfig, z_dim: int, do_pl: bool, do_r1: boo
         state.d_opt.step()
 
         # ---- EMA with ramp-up (ref training_loop.py:527-535) ----
-        state.cur_nimg += n
+        state.cur_nimg += n_global
         ema_nimg = cfg.ema_kimg * 1000.0
         if cfg.ema_rampup is not None:
             ema_nimg = min(ema_nimg, state.cur_nimg * cfg.ema_rampup)
-        ema_update(state.g_ema, g, 0.5 ** (n / max(ema_nimg, 1e-8)))
+        ema_update(state.g_ema, g, 0.5 ** (n_global / max(ema_nimg, 1e-8)))
 
         # ---- ADA sign statistic; ``ada_update`` moves p every ada_interval steps ----
-        state.ada_sign_sum = state.ada_sign_sum + metrics["real_signs"] * n
-        state.ada_count = state.ada_count + n
+        state.ada_sign_sum = state.ada_sign_sum + metrics["real_signs"] * n_global
+        state.ada_count = state.ada_count + n_global
         state.step += 1
         return state, metrics
 

@@ -1,7 +1,8 @@
 """BigGAN/IC-GAN trainer: port of ``ic_gan_tpu/train/trainer.py``.
 
 The epoch loop, eval, checkpoints and early stopping of
-``BigGAN_PyTorch/trainer.py:41-541``, on one device:
+``BigGAN_PyTorch/trainer.py:41-541``, on one device or, with a process
+group up (``parallel.mesh.distributed_init``), data-parallel over its ranks:
 
 - per-epoch loop over host-sampled batches (the dataset's conditioning
   draws stay numpy, as the JAX trainer's and the reference's DataLoader);
@@ -15,8 +16,13 @@ The epoch loop, eval, checkpoints and early stopping of
 - rotating ``copy%d`` saves (ref ``train_fns.py:219-236``).
 
 The model config picks the backbone: BigGAN or BigGAN-deep
-(``models.biggan_deep.model_classes``).  Data parallelism (the JAX
-trainer's mesh and multi-host feeding) waits for ROADMAP.md A.9.
+(``models.biggan_deep.model_classes``).  Data parallelism follows the JAX
+trainer's mesh and multi-host feeding: ``batch_size`` is the global
+microbatch and each rank draws its share from a dataset stream seeded with
+``seed + 100003·rank``; the state is broadcast from rank 0 after init and
+load, the step runs over the mesh (``train.step``), only rank 0 evaluates
+(its IS and FID are broadcast to every rank) and only rank 0 writes
+checkpoints, logs and sheets.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ic_gan_tpu_torch import resolve_device
 from ic_gan_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
@@ -37,6 +44,15 @@ from ic_gan_tpu_torch.io.deploy import accumulate_standing_stats, fold_spectral_
 from ic_gan_tpu_torch.models.biggan import BigGANConfig
 from ic_gan_tpu_torch.models.biggan_deep import model_classes
 from ic_gan_tpu_torch.models.layers import apply_weight_init
+from ic_gan_tpu_torch.parallel.mesh import (
+    broadcast_one_to_all,
+    is_main_process,
+    local_batch_size,
+    make_mesh,
+    process_count,
+    process_index,
+    replicated,
+)
 from ic_gan_tpu_torch.train.state import GANTrainState, start_profile, step_seed, stop_profile
 from ic_gan_tpu_torch.train.step import TrainConfig, make_train_step
 from ic_gan_tpu_torch.utils.logging import MetricLogger, MetricsLogger, write_metadata
@@ -56,8 +72,9 @@ class TrainerConfig:
     es_patience: int = 50
     seed: int = 0
     deterministic_run: bool = True
-    batch_size: int = 64          # per microbatch (per accumulation)
-    # More than one device waits for data parallelism (ROADMAP.md A.9).
+    batch_size: int = 64          # per microbatch (per accumulation), global
+    # The data mesh's size: None (or the process group's size) runs one
+    # rank per process of the group, 1 a single process.
     n_devices: Optional[int] = None
     # Reference eval-mode flags (utils.py:508-537): sample from the EMA copy,
     # and accumulate standing BN statistics before each eval.
@@ -107,10 +124,17 @@ class TrainerConfig:
     profile_start: int = 10
 
 
+class _NoLog:
+    """The loggers of a rank that writes nothing."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+
 class Trainer:
     """Drives IC-GAN BigGAN training end to end on ``device`` (CUDA unless
-    named).  ``dataset`` is an ``HDF5Dataset`` or an object with its
-    sampling methods and ``rng``."""
+    named), data-parallel when a process group is up.  ``dataset`` is an
+    ``HDF5Dataset`` or an object with its sampling methods and ``rng``."""
 
     def __init__(
         self,
@@ -123,10 +147,11 @@ class Trainer:
         device=None,
     ):
         generator_cls, discriminator_cls = model_classes(model_cfg)
-        if trainer_cfg.n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices {trainer_cfg.n_devices}: data parallelism is not ported yet "
-                "(ROADMAP.md A.9)")
+        if trainer_cfg.n_devices not in (None, process_count()):
+            raise ValueError(
+                f"n_devices {trainer_cfg.n_devices}: the trainer runs one rank per process "
+                f"of the process group ({process_count()}); launch one process per device "
+                "(parallel.mesh.distributed_init)")
         self.mcfg = model_cfg
         self.tcfg = train_cfg
         self.cfg = trainer_cfg
@@ -134,6 +159,9 @@ class Trainer:
         self.eval_fn = eval_fn
         self.sampling_weights = sampling_weights
         self.device = resolve_device(device)
+        self.mesh = make_mesh(device=self.device) if dist.is_initialized() else None
+        self.rank, self.is_main = process_index(), is_main_process()
+        local_batch_size(trainer_cfg.batch_size)    # raises unless it divides over the ranks
 
         init = torch.Generator(device=self.device).manual_seed(trainer_cfg.seed)
         self.g = generator_cls(model_cfg, device=self.device, generator=init)
@@ -143,8 +171,13 @@ class Trainer:
             apply_weight_init(self.d, trainer_cfg.D_init, init)
         self.state = GANTrainState.create(
             self.g, self.d, train_cfg.g_optimizer(), train_cfg.d_optimizer())
-        self.step_fn = make_train_step(train_cfg, model_cfg.effective_dim_z)
+        self.step_fn = make_train_step(train_cfg, model_cfg.effective_dim_z, mesh=self.mesh)
         self.generator = torch.Generator(device=self.device)
+        if self.mesh is not None:
+            self._replicate()
+            # Each rank draws its own rows (ref trainer.py:113-119 seeds
+            # with the rank).
+            self.dataset.rng = np.random.default_rng(trainer_cfg.seed + 100003 * self.rank)
 
         # Conditioning-draw weights (ref trainer.py:336-371), apart from the
         # real-batch balanced sampler: nnclass_balance takes per-class
@@ -165,6 +198,10 @@ class Trainer:
         }
         # (epoch, seconds, img/s) of each epoch run, the saves left out.
         self.epoch_stats = []
+        self.tb = None
+        if not self.is_main:
+            self.train_log = self.test_log = self.metric_log = _NoLog()
+            return
         os.makedirs(trainer_cfg.weights_root, exist_ok=True)
         logs_dir = os.path.join(trainer_cfg.logs_root, trainer_cfg.experiment_name)
         os.makedirs(logs_dir, exist_ok=True)
@@ -172,7 +209,6 @@ class Trainer:
         self.train_log = MetricsLogger(os.path.join(logs_dir, f"{name}_log.jsonl"))
         self.test_log = MetricsLogger(os.path.join(logs_dir, f"{name}_test_log.jsonl"))
         self.metric_log = MetricLogger(logs_dir)
-        self.tb = None
         if trainer_cfg.enable_tb:
             from ic_gan_tpu_torch.utils.tensorboard import SummaryWriter
 
@@ -183,6 +219,11 @@ class Trainer:
              "train": dataclasses.asdict(train_cfg),
              "trainer": dataclasses.asdict(trainer_cfg)},
         )
+
+    def _replicate(self):
+        """The state as rank 0 holds it, on every rank (the optimizers'
+        moments are empty after init and read from one file on load)."""
+        replicated(self.mesh, self.state.g, self.state.d, self.state.g_ema)
 
     # -- data ---------------------------------------------------------------
 
@@ -240,9 +281,10 @@ class Trainer:
     def make_batch(self) -> dict:
         """The slab batch of the train step: nD microbatches of reals and
         nD + accG fresh generator conditionings (ref ``train_fns.py:62-163``),
-        drawn in the JAX trainer's order, on the device."""
+        drawn in the JAX trainer's order, on the device: this rank's share
+        of the global microbatch."""
         t = self.tcfg
-        mb = self.cfg.batch_size
+        mb = local_batch_size(self.cfg.batch_size)
         nD = t.num_D_steps * t.num_D_accumulations
         images, labels, feats = [], [], []
         for _ in range(nD):
@@ -343,9 +385,15 @@ class Trainer:
     def test(self):
         if self.eval_fn is None:
             return None
-        metrics = self.eval_fn(self)
-        is_mean = float(metrics.get("IS_mean", 0.0))
-        fid = float(metrics.get("FID", float("inf")))
+        # Eval runs on rank 0 only (every rank holds its state); the verdicts
+        # are broadcast, so every rank takes the same best-copy and stop
+        # decisions (the JAX trainer's ``test``).
+        metrics = self.eval_fn(self) if self.is_main else None
+        vals = ([metrics.get("IS_mean", 0.0), metrics.get("FID", float("inf"))]
+                if metrics is not None else [0.0, 0.0])
+        is_mean, fid = (float(v) for v in broadcast_one_to_all(vals, self.device))
+        if metrics is None:
+            metrics = {"IS_mean": is_mean, "FID": fid}
         h = self.history
         improved = ((self.cfg.which_best == "IS" and is_mean > h["best_IS"])
                     or (self.cfg.which_best == "FID" and fid < h["best_FID"]))
@@ -365,6 +413,8 @@ class Trainer:
         return metrics
 
     def save(self, suffix: str = ""):
+        if not self.is_main:
+            return
         save_checkpoint(
             self.cfg.weights_root, self.cfg.experiment_name, self.state,
             config={"history": dict(self.history),
@@ -381,13 +431,20 @@ class Trainer:
             self.cfg.weights_root, self.cfg.experiment_name, self.state, suffix)
         if cfg and "history" in cfg:
             self.history.update(cfg["history"])
-        if cfg and cfg.get("dataset_rng_state"):
+        # The saved stream is rank 0's: the other ranks keep their own until
+        # the next epoch's reseed (the JAX trainer gives every host rank 0's).
+        if cfg and cfg.get("dataset_rng_state") and self.is_main:
             self.dataset.rng.bit_generator.state = cfg["dataset_rng_state"]
+        if self.mesh is not None:
+            self._replicate()
 
     def _save_progress_sheet(self, n: int = 16):
         """A fixed-seed sample grid per save (ref ``save_and_sample``
-        fixed_z sheets, ``train_fns.py:245-281``).  Needs PIL; without it,
-        or on any other failure, the sheet is skipped and training goes on."""
+        fixed_z sheets, ``train_fns.py:245-281``), on rank 0.  Needs PIL;
+        without it, or on any other failure, the sheet is skipped and
+        training goes on."""
+        if not self.is_main:
+            return
         try:
             from ic_gan_tpu_torch.cli.inference import save_image_grid
 
@@ -437,7 +494,8 @@ class Trainer:
             for epoch in range(self.history["epoch"], cfg.num_epochs):
                 if cfg.deterministic_run:
                     # Per-epoch reseed (ref trainer.py:113-119, seed + epoch + rank).
-                    self.dataset.rng = np.random.default_rng(cfg.seed + epoch)
+                    self.dataset.rng = np.random.default_rng(
+                        cfg.seed + epoch + 100003 * self.rank)
                 t0 = time.time()
                 for _ in range(steps_per_epoch):
                     itr = self.history["itr"]

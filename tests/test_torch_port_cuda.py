@@ -1096,3 +1096,83 @@ def test_exported_samplers_launch_the_kernels_on_the_card():
             want = out
     assert counts[0] == counts[1] > 0
     assert (out - want).abs().max().item() <= 1e-5
+
+
+# --- the batch loader and data parallelism ------------------------------------------
+
+def test_loader_on_the_card_is_the_host_formula_bit_for_bit():
+    """Every uint8 value, with and without the flip, through both formulas'
+    tables on the card against numpy's float32 arithmetic on the host;
+    ``gather_rows`` against numpy's indexing."""
+    import numpy as np
+
+    from ic_gan_tpu_torch.data import loader
+
+    rng = np.random.default_rng(0)
+    u8 = np.stack([rng.permutation(np.tile(np.arange(256, dtype=np.uint8), 3)).reshape(3, 16, 16)
+                   for _ in range(4)])
+    mask = np.array([0, 1, 1, 0], np.uint8)
+    for formula in loader.FORMULAS:
+        for flip in (None, mask):
+            x = u8.copy()
+            if flip is not None:
+                x[flip == 1] = x[flip == 1][:, :, :, ::-1]
+            x = x.astype(np.float32)
+            want = (x * (np.float32(2.0) / np.float32(255.0)) + np.float32(-1.0)
+                    if formula == "loader" else (x / 255.0 - 0.5) * 2.0)
+            got = loader.normalize_batch(u8, flip, device="cuda", formula=formula)
+            assert got.is_cuda
+            np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                          want.view(np.uint32))
+    src = rng.standard_normal((40, 5)).astype(np.float32)
+    idx = rng.integers(0, 40, 17)
+    np.testing.assert_array_equal(loader.gather_rows(src, idx, device="cuda").cpu().numpy(),
+                                  src[idx])
+
+
+def test_world1_nccl_step_matches_the_plain_step():
+    """NCCL at world size 1: a toy BigGAN step (f32, attention in D) over
+    the mesh against the plain step from the same state and draws; the
+    kernels launch as in the plain step."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ic_gan_tpu_torch.parallel.mesh import distributed_init, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed_init(coordinator_address=f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                     device="cuda:0")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(device="cuda:0")
+        cfg = BigGANConfig(resolution=32, G_ch=16, D_ch=16, G_attn="0", D_attn="16", dim_z=40,
+                           shared_dim_feat=32, instance_sz=64)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        g0, d0 = Generator(cfg, generator=gen), Discriminator(cfg, generator=gen)
+        batch = dict(x=torch.rand((1, 8, 3, 32, 32), generator=gen, device="cuda") * 2 - 1,
+                     feats=torch.randn((1, 8, 64), generator=gen, device="cuda"),
+                     gen_feats=torch.randn((2, 8, 64), generator=gen, device="cuda"))
+        tcfg = TrainConfig(ema_start=0, adam_eps=1e-3)
+        out = []
+        for m in (None, mesh):
+            state = GANTrainState.create(copy.deepcopy(g0), copy.deepcopy(d0),
+                                         tcfg.g_optimizer(), tcfg.d_optimizer())
+            fwd = sagan_attention_fwd.launches
+            _, metrics = make_train_step(tcfg, cfg.effective_dim_z, debug_grads=True, mesh=m)(
+                state, batch, torch.Generator(device="cuda").manual_seed(4))
+            torch.cuda.synchronize()
+            out.append((metrics, sagan_attention_fwd.launches - fwd))
+        (ref, n_ref), (got, n_got) = out
+        assert n_got == n_ref > 0
+        for k in ("D_loss_real", "D_loss_fake", "G_loss"):
+            assert abs(got[k].item() - ref[k].item()) <= 1e-4 * max(abs(ref[k].item()), 1e-6)
+        for which in ("g_grads", "d_grads"):
+            top = max(v.abs().max().item() for v in ref[which].values())
+            for k, r in ref[which].items():
+                err = (got[which][k] - r).abs().max().item()
+                assert err <= 1e-2 * r.abs().max().item() + 1e-5 * top, (which, k, err)
+    finally:
+        dist.destroy_process_group()

@@ -47,6 +47,7 @@ from ic_gan_tpu_torch.eval import metrics as tmetrics
 from ic_gan_tpu_torch.eval import pipeline as tpipe
 from ic_gan_tpu_torch.eval import prdc as tprdc
 from ic_gan_tpu_torch.models import inception as tinception
+from ic_gan_tpu_torch.parallel.mesh import make_mesh
 from test_torch_port_biggan_loop import K, RES, _cli_config, _state_tensors, files  # noqa: F401
 from test_torch_port_classcond import _one_torch_thread, in_background  # noqa: F401
 
@@ -422,8 +423,13 @@ def test_dataset_moments_and_feature_cache_match_jax(evaluators, files, tmp_path
     bf16 = tpipe.InceptionEvaluator(path, deploy_bf16=True, device="cpu")
     tpipe.cached_real_features(tds, bf16, str(cache), 2, batch=2)
     assert len(os.listdir(cache)) == 2
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tpipe.InceptionEvaluator(device="cpu", mesh=object())
+    # A one-rank mesh (no process group) shards nothing and pads nothing:
+    # the features are the unsharded ones (two ranks:
+    # test_torch_port_parallel.py).
+    on_mesh = tpipe.InceptionEvaluator(path, mesh=make_mesh(device="cpu"), device="cpu")
+    x = torch.rand((2, 3, RES, RES), generator=torch.Generator().manual_seed(0)) * 2 - 1
+    for a, b in zip(on_mesh(x), tev(x)):
+        np.testing.assert_array_equal(a, b)
     assert tpipe.moments_filename(64, "imagenet_lt", True, "val") == jpipe.moments_filename(
         64, "imagenet_lt", True, "val") == "I64longtail_val_inception_moments.npz"
 

@@ -338,7 +338,8 @@ def test_port_imports_no_jax():
     # data-preparation and eval-CLI slice's (readers, COCO tools, VGG16) and the
     # int8 serving slice's (io/quant.py, ops/int8_conv.py) and the last CLIs'
     # and pretrained-weight paths' (sheets, projector, log plots, CLIP and its
-    # guided search, the tokenizer, CMA-ES, TFHub, the TF1 Inception) included.
+    # guided search, the tokenizer, CMA-ES, TFHub, the TF1 Inception) and the
+    # batch loader and data parallelism (data/loader.py, parallel/) included.
     rel = {os.path.relpath(f, os.path.join(ROOT, "ic_gan_tpu_torch")) for f in files}
     assert {"data/ada.py", "data/fast_warp.py", "ops/row_shift.py", "ops/bias_act.py",
             "ops/conv_resample.py", "models/stylegan2.py", "train/stylegan2_step.py",
@@ -356,7 +357,8 @@ def test_port_imports_no_jax():
             "ops/int8_conv.py", "cli/visualize.py", "cli/projector.py", "cli/plot_logs.py",
             "utils/cma_es.py", "data/tokenizer.py", "models/clip.py", "cli/clip_guided.py",
             "io/tfhub_import.py", "cli/convert_tfhub.py", "eval/tf_inception.py",
-            "cli/official_eval.py"} <= rel
+            "cli/official_eval.py", "data/loader.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/collectives.py", "parallel/stats.py"} <= rel
     bad = {(os.path.relpath(f, ROOT), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad

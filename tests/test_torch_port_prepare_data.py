@@ -408,7 +408,8 @@ def test_prepare_data_main_is_read_alike_by_both_packages(folder, tmp_path):
     assert len(td.kmeans_samples) == K_MEANS
     for _ in range(2):
         tb, jb = td.sample_batch(4), jd.sample_batch(4)
-        np.testing.assert_allclose(np.transpose(tb.images, (0, 2, 3, 1)), jb.images, atol=1e-6)
+        np.testing.assert_allclose(np.transpose(tb.images.numpy(), (0, 2, 3, 1)), jb.images,
+                                   atol=1e-6)
         for name in ("labels", "features", "radii"):
             np.testing.assert_array_equal(getattr(tb, name), getattr(jb, name), err_msg=name)
 

@@ -14,6 +14,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from ic_gan_tpu.cli import config as jconfig
 from ic_gan_tpu.cli import train_stylegan2 as jcli
@@ -53,7 +54,7 @@ def _datasets(files, **kw):
     root, names = files
     args = dict(root=str(root / names["xy"]), root_feats=str(root / names["feats"]),
                 root_nns=str(root / names["nns"]), k_nn=K, feature_dim=F, seed=3, **kw)
-    return jdata.HDF5Dataset(**args), tdata.HDF5Dataset(**args)
+    return jdata.HDF5Dataset(**args), tdata.HDF5Dataset(**args, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [
@@ -63,13 +64,15 @@ def _datasets(files, **kw):
 def test_hdf5_dataset_draws_match_jax(files, kw):
     """Three ``sample_batch`` and three ``sample_conditioning_instance_balance``
     calls, interleaved as the trainer calls them: indices, labels, features
-    and radii exact, images to 1e-6 (x·(2/255) − 1 in f32 on both sides)."""
+    and radii exact, images to 1e-6 (x·(2/255) − 1 in f32 on both sides;
+    the port's on the dataset's device)."""
     jd, td = _datasets(files, **kw)
     assert len(jd) == len(td) == N and td.resolution == RES
     for _ in range(3):
         jb, tb = jd.sample_batch(4), td.sample_batch(4)
-        assert tb.images.shape == (4, 3, RES, RES) and tb.images.dtype == np.float32
-        np.testing.assert_allclose(np.transpose(tb.images, (0, 2, 3, 1)), jb.images, atol=1e-6)
+        assert tb.images.shape == (4, 3, RES, RES) and tb.images.dtype == torch.float32
+        np.testing.assert_allclose(np.transpose(tb.images.numpy(), (0, 2, 3, 1)), jb.images,
+                                   atol=1e-6)
         for name in ("labels", "features", "radii"):
             a, b = getattr(jb, name), getattr(tb, name)
             assert (a is None) == (b is None), name
@@ -108,7 +111,7 @@ def test_get_dataset_hdf5_matches_jax_and_refuses_filter_hd(files):
     root, names = files
     kw = dict(resolution=RES, data_path=str(root), k_nn=K, feature_extractor="classification",
               feature_dim=F, seed=2, label_dim=5, label_onehot=True)
-    jd, td = jdata.get_dataset_hdf5(**kw), tdata.get_dataset_hdf5(**kw)
+    jd, td = jdata.get_dataset_hdf5(**kw), tdata.get_dataset_hdf5(**kw, device="cpu")
     np.testing.assert_array_equal(td.sample_batch(4).labels, jd.sample_batch(4).labels)
     for mod in (tdata, jdata):
         with pytest.raises(FileNotFoundError, match="cocostuff_val2_all_idxs"):

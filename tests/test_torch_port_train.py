@@ -274,8 +274,9 @@ def test_unported_discriminator_options_raise():
     """The class heads and DiffAugment are ported (``test_torch_port_
     classcond.py``, ``test_torch_port_train_cc.py``), and so is the
     BigGAN-deep backbone (``test_torch_port_biggan_deep.py``); what still
-    raises in the BigGAN training path is data parallelism (ROADMAP.md A.9)
-    and a model config of neither backbone."""
+    raises in the BigGAN training path is a data mesh of another size than
+    the process group (one process here: ``test_torch_port_parallel.py``
+    runs two) and a model config of neither backbone."""
     from ic_gan_tpu_torch.cli.config import split_config
     from ic_gan_tpu_torch.models.biggan_deep import BigGANDeepConfig
     from ic_gan_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -284,7 +285,7 @@ def test_unported_discriminator_options_raise():
     d = tbiggan.Discriminator(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     assert d.embed.weight.shape == (cfg.n_classes, cfg.d_arch["out_channels"][-1] // 2)
     tstep.make_train_step(tstep.TrainConfig(DiffAugment="translation"), 35)
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(ValueError, match="one rank per process"):
         Trainer(port_cfg(), tstep.TrainConfig(), TrainerConfig(n_devices=2), None, device="cpu")
     with pytest.raises(NotImplementedError, match="not a BigGAN or BigGAN-deep"):
         Trainer(object(), tstep.TrainConfig(), TrainerConfig(), None, device="cpu")
