@@ -1,0 +1,1 @@
+"""Frozen plain copy; see the package docstring."""
