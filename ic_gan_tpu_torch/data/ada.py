@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from ic_gan_tpu_torch.data.fast_warp import affine_warp
 from ic_gan_tpu_torch.ops.resample import downsample2d, setup_filter, upsample2d
 from ic_gan_tpu_torch.parallel import collectives
+from ic_gan_tpu_torch.utils.spans import span
 
 # Symlet wavelets of the reference (augment.py:24-50).
 WAVELETS = {
@@ -204,6 +205,10 @@ class AugmentPipe:
     def __call__(self, images: torch.Tensor, p, generator=None,
                  debug_percentile=None) -> torch.Tensor:
         """``p``: a float or a 0-d tensor (read on the device, no sync)."""
+        with span("data/ada_pipe"):
+            return self._augment(images, p, generator, debug_percentile)
+
+    def _augment(self, images, p, generator, debug_percentile):
         n, c, h, w = images.shape
         dev = images.device
         md = torch.promote_types(images.dtype, torch.float32)  # draws and matrices

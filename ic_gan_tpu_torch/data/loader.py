@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ic_gan_tpu_torch import resolve_device
+from ic_gan_tpu_torch.utils.spans import span
 
 FORMULAS = ("loader", "norm")
 
@@ -57,17 +58,18 @@ def normalize_batch(u8, hflip_mask=None, apply_norm: bool = True, device=None,
     """uint8 (B, C, H, W) (numpy or a tensor) → float32 (B, C, H, W) on
     ``device`` (default CUDA): flipped along W where ``hflip_mask`` (B,) is
     set, each value mapped through ``norm_table(formula, apply_norm)``."""
-    device = resolve_device(device)
-    x = torch.as_tensor(u8)
-    if x.dtype != torch.uint8 or x.dim() != 4:
-        raise ValueError(f"normalize_batch takes uint8 (B, C, H, W), got {x.dtype} "
-                         f"{tuple(x.shape)}")
-    x = x.to(device)
-    if hflip_mask is not None:
-        m = torch.as_tensor(np.asarray(hflip_mask, bool)).to(device)
-        x = torch.where(m[:, None, None, None], x.flip(3), x)
-    table = _device_table(formula, bool(apply_norm), device)
-    return table[x.int()]
+    with span("data/normalize_batch"):
+        device = resolve_device(device)
+        x = torch.as_tensor(u8)
+        if x.dtype != torch.uint8 or x.dim() != 4:
+            raise ValueError(f"normalize_batch takes uint8 (B, C, H, W), got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        x = x.to(device)
+        if hflip_mask is not None:
+            m = torch.as_tensor(np.asarray(hflip_mask, bool)).to(device)
+            x = torch.where(m[:, None, None, None], x.flip(3), x)
+        table = _device_table(formula, bool(apply_norm), device)
+        return table[x.int()]
 
 
 def gather_rows(src, indices, device=None) -> torch.Tensor:

@@ -25,6 +25,7 @@ from ic_gan_tpu_torch.models.layers import _SpectralNormed
 from ic_gan_tpu_torch.models.stylegan2 import _Filtered
 from ic_gan_tpu_torch.parallel import collectives
 from ic_gan_tpu_torch.parallel.mesh import shard_rows
+from ic_gan_tpu_torch.utils.spans import span
 
 
 def fold_spectral_norm(module: nn.Module) -> nn.Module:
@@ -140,7 +141,7 @@ def make_sampler(g: nn.Module, *, batch_size: Optional[int] = None, device=None,
         if mesh is not None and bs % mesh.world:
             raise ValueError(f"a batch of {bs} does not divide over {mesh.world} ranks")
         outs = []
-        with torch.inference_mode():
+        with span("sampler/call"), torch.inference_mode():
             for lo in range(0, n, bs):
                 hi = min(lo + bs, n)
                 pad = bs - (hi - lo)

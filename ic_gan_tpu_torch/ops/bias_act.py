@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ic_gan_tpu_torch.ops import _build
+from ic_gan_tpu_torch.utils.spans import span
 
 _SELU_SCALE = 1.0507009873554804934193349852946
 _SELU_ALPHA = 1.6732632423543772848170429916717
@@ -255,7 +256,7 @@ class BiasAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, b = ctx.saved_tensors
-        with torch.profiler.record_function("bias_act_bwd"):
+        with span("bias_act_bwd"):
             gx = BiasActGrad.apply(gy, x, b, *ctx.args)
             gb = _sum_to_bias(gx, b, ctx.args[0]) \
                 if b is not None and ctx.needs_input_grad[1] else None

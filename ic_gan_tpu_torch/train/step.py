@@ -47,6 +47,7 @@ from ic_gan_tpu_torch.train.state import (
     make_optimizer,
     scrub_grads,
 )
+from ic_gan_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,10 +181,11 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False,
                    generator: Optional[torch.Generator] = None,
                    zs: Optional[Sequence[torch.Tensor]] = None,
                    aug_draws: Optional[Sequence] = None):
-        if mesh is None:
-            return step_body(state, batch, generator, zs, aug_draws)
-        with collectives.data_parallel(mesh):
-            return step_body(state, batch, generator, zs, aug_draws)
+        with span("train_step"):
+            if mesh is None:
+                return step_body(state, batch, generator, zs, aug_draws)
+            with collectives.data_parallel(mesh):
+                return step_body(state, batch, generator, zs, aug_draws)
 
     def step_body(state, batch, generator, zs, aug_draws):
         g, d = state.g.train(), state.d.train()
@@ -212,67 +214,70 @@ def make_train_step(cfg: TrainConfig, dim_z: int, debug_grads: bool = False,
 
         # ---- D phase: num_D_steps optimizer steps, each over
         # num_D_accumulations microbatches. ----
-        for d_step in range(cfg.num_D_steps):
-            state.d_opt.zero_grad(set_to_none=True)
-            loss_real = loss_fake = 0.0
-            for acc in range(n_acc_d):
-                i = d_step * n_acc_d + acc
-                x_real, z = batch["x"][i], draw_z(i)
-                gl, gf = cond(batch, "gen_", i)
-                dl, df = cond(batch, "", i)
-                with torch.no_grad():
-                    fake = g(z, gl, gf)
-                if cfg.split_D:
-                    # The real pass sees the spectral-norm state the fake
-                    # pass advanced, as in the reference.  DiffAugment
-                    # exists only on the concat path upstream.
-                    d_fake = d(fake, gl, gf)
-                    d_real = d(x_real, dl, df)
-                else:
-                    d_in = torch.cat([fake, x_real])
-                    if cfg.DiffAugment:
-                        d_in = augment(d_in, i, parts=2)
-                    d_fake, d_real = d(d_in, cat(gl, dl), cat(gf, df)).split(
-                        [z.shape[0], x_real.shape[0]])
-                lr_, lf_ = d_loss_fn(d_fake, d_real)
-                (local(lr_ + lf_) / n_acc_d).backward()
-                loss_real = loss_real + lr_.detach()
-                loss_fake = loss_fake + lf_.detach()
-            metrics["D_grad_nonfinite"] = _finish_grads(d, cfg.D_ortho, mesh=mesh)
-            if debug_grads:
-                metrics["d_grads"] = _snapshot_grads(d)
-            state.d_opt.step()
-            metrics["D_loss_real"] = global_mean(loss_real / n_acc_d)
-            metrics["D_loss_fake"] = global_mean(loss_fake / n_acc_d)
+        with span("phase/D"):
+            for d_step in range(cfg.num_D_steps):
+                state.d_opt.zero_grad(set_to_none=True)
+                loss_real = loss_fake = 0.0
+                for acc in range(n_acc_d):
+                    i = d_step * n_acc_d + acc
+                    x_real, z = batch["x"][i], draw_z(i)
+                    gl, gf = cond(batch, "gen_", i)
+                    dl, df = cond(batch, "", i)
+                    with torch.no_grad():
+                        fake = g(z, gl, gf)
+                    if cfg.split_D:
+                        # The real pass sees the spectral-norm state the fake
+                        # pass advanced, as in the reference.  DiffAugment
+                        # exists only on the concat path upstream.
+                        d_fake = d(fake, gl, gf)
+                        d_real = d(x_real, dl, df)
+                    else:
+                        d_in = torch.cat([fake, x_real])
+                        if cfg.DiffAugment:
+                            d_in = augment(d_in, i, parts=2)
+                        d_fake, d_real = d(d_in, cat(gl, dl), cat(gf, df)).split(
+                            [z.shape[0], x_real.shape[0]])
+                    lr_, lf_ = d_loss_fn(d_fake, d_real)
+                    (local(lr_ + lf_) / n_acc_d).backward()
+                    loss_real = loss_real + lr_.detach()
+                    loss_fake = loss_fake + lf_.detach()
+                metrics["D_grad_nonfinite"] = _finish_grads(d, cfg.D_ortho, mesh=mesh)
+                if debug_grads:
+                    metrics["d_grads"] = _snapshot_grads(d)
+                state.d_opt.step()
+                metrics["D_loss_real"] = global_mean(loss_real / n_acc_d)
+                metrics["D_loss_fake"] = global_mean(loss_fake / n_acc_d)
 
         # ---- G phase ----
-        state.g_opt.zero_grad(set_to_none=True)
-        g_loss = 0.0
-        with frozen(d):
-            for acc in range(n_acc_g):
-                i = nD + acc
-                z = draw_z(i)
-                gl, gf = cond(batch, "gen_", i)
-                fake = g(z, gl, gf)
-                # Off under split_D, as in the JAX step: G would otherwise
-                # train against augmented fakes D never saw augmented.
-                if cfg.DiffAugment and not cfg.split_D:
-                    fake = augment(fake, i)
-                loss = g_loss_fn(d(fake, gl, gf)) / n_acc_g
-                local(loss).backward()
-                g_loss = g_loss + loss.detach()
-        metrics["G_loss"] = global_mean(g_loss)
-        # Blacklist the class embedding (ref train_fns.py:170-175); the
-        # match is by substring, as in the JAX package.
-        metrics["G_grad_nonfinite"] = _finish_grads(g, cfg.G_ortho, ("shared",), mesh)
-        if debug_grads:
-            metrics["g_grads"] = _snapshot_grads(g)
-        state.g_opt.step()
+        with span("phase/G"):
+            state.g_opt.zero_grad(set_to_none=True)
+            g_loss = 0.0
+            with frozen(d):
+                for acc in range(n_acc_g):
+                    i = nD + acc
+                    z = draw_z(i)
+                    gl, gf = cond(batch, "gen_", i)
+                    fake = g(z, gl, gf)
+                    # Off under split_D, as in the JAX step: G would otherwise
+                    # train against augmented fakes D never saw augmented.
+                    if cfg.DiffAugment and not cfg.split_D:
+                        fake = augment(fake, i)
+                    loss = g_loss_fn(d(fake, gl, gf)) / n_acc_g
+                    local(loss).backward()
+                    g_loss = g_loss + loss.detach()
+            metrics["G_loss"] = global_mean(g_loss)
+            # Blacklist the class embedding (ref train_fns.py:170-175); the
+            # match is by substring, as in the JAX package.
+            metrics["G_grad_nonfinite"] = _finish_grads(g, cfg.G_ortho, ("shared",), mesh)
+            if debug_grads:
+                metrics["g_grads"] = _snapshot_grads(g)
+            state.g_opt.step()
 
         # ---- EMA (decay gated on ema_start, ref utils.py:1055-1061) ----
         if cfg.ema:
-            ema_update(state.g_ema, g,
-                       cfg.ema_decay if state.step >= cfg.ema_start else 0.0)
+            with span("phase/ema"):
+                ema_update(state.g_ema, g,
+                           cfg.ema_decay if state.step >= cfg.ema_start else 0.0)
         state.step += 1
         return state, metrics
 

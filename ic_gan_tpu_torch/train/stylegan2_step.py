@@ -41,6 +41,7 @@ from ic_gan_tpu_torch.parallel import collectives
 from ic_gan_tpu_torch.parallel.mesh import Mesh, shard_rows
 from ic_gan_tpu_torch.train import losses
 from ic_gan_tpu_torch.train.state import ema_update, frozen, make_optimizer, scrub_grads
+from ic_gan_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +160,8 @@ def make_sg2_train_step(cfg: SG2TrainConfig, z_dim: int, do_pl: bool, do_r1: boo
     batch's.
     """
     world = 1 if mesh is None else mesh.world
+    step_span = "sg2_step/" + "+".join(
+        ["main"] + (["pl"] if do_pl else []) + (["r1"] if do_r1 else []))
 
     def global_sum(t):
         return t if mesh is None else collectives.all_reduce(t, mesh)
@@ -195,10 +198,11 @@ def make_sg2_train_step(cfg: SG2TrainConfig, z_dim: int, do_pl: bool, do_r1: boo
     def train_step(state: SG2TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[dict] = None):
-        if mesh is None:
-            return step_body(state, batch, generator, draws)
-        with collectives.data_parallel(mesh):
-            return step_body(state, batch, generator, draws)
+        with span(step_span):
+            if mesh is None:
+                return step_body(state, batch, generator, draws)
+            with collectives.data_parallel(mesh):
+                return step_body(state, batch, generator, draws)
 
     def step_body(state, batch, generator, draws):
         g, d = state.g.train(), state.d.train()
@@ -215,85 +219,88 @@ def make_sg2_train_step(cfg: SG2TrainConfig, z_dim: int, do_pl: bool, do_r1: boo
         metrics = {}
 
         # ---- G phase: Gmain (+ Gpl) ----
-        state.g_opt.zero_grad(set_to_none=True)
-        with frozen(d):
-            img = run_G(g, draws["z"], gen_c, gen_h, draws["cutoffs"][0], draws["z2s"][0],
-                        True, generator)
-            logits = run_D(d, img, gen_c, gen_h, state.ada_p, generator)
-            loss = losses.logistic_g_loss(logits) / world
-            metrics["G_loss"] = global_sum(loss.detach())
-            metrics["fake_scores"] = global_sum(logits.detach().mean() / world)
-            total = loss
-            new_pl_mean = state.pl_mean
-            if do_pl and cfg.pl_weight != 0:
-                nb_global = max(n_global // cfg.pl_batch_shrink, 1)
-                if nb_global % world:
-                    raise ValueError(f"the path-length batch {nb_global} does not divide "
-                                     f"over {world} ranks")
-                # This rank's rows of the global batch's first nb_global.
-                z_pl, c_pl, h_pl = (None if t is None else shard_rows(t[:nb_global], mesh)
-                                    for t in (pl_draws["z"], gather(gen_c), gather(gen_h)))
-                ws_pl = g.map_ws(z_pl, c_pl, h_pl)
-                img_pl = g.synthesize(ws_pl, generator=generator)
-                noise = shard_rows(pl_draws["pl_noise"], mesh) \
-                    / math.sqrt(img_pl.shape[2] * img_pl.shape[3])
-                pl_len = losses.path_lengths(img_pl, ws_pl, noise.to(img_pl.dtype))
-                # The penalty differentiates through the updated mean too, as
-                # upstream's lerp does.
-                pl_len_mean = pl_len.mean() if mesh is None \
-                    else global_sum(pl_len.sum()) / nb_global
-                new_pl_mean = state.pl_mean + cfg.pl_decay * (pl_len_mean - state.pl_mean)
-                pl_penalty = (pl_len - new_pl_mean).square().mean() / world
-                metrics["pl_penalty"] = global_sum(pl_penalty.detach())
-                total = total + pl_penalty * cfg.pl_weight * cfg.G_reg_interval
-            total.backward()
-        _fill_missing_grads(g)
-        if mesh is not None:
-            collectives.all_reduce_grads(g.parameters(), mesh)
-        metrics["G_grad_nonfinite"] = scrub_grads(g.parameters())
-        if debug_grads:
-            metrics["g_grads"] = _snapshot_grads(g)
-        state.g_opt.step()
-        state.pl_mean = new_pl_mean.detach()
+        with span("phase/G"):
+            state.g_opt.zero_grad(set_to_none=True)
+            with frozen(d):
+                img = run_G(g, draws["z"], gen_c, gen_h, draws["cutoffs"][0], draws["z2s"][0],
+                            True, generator)
+                logits = run_D(d, img, gen_c, gen_h, state.ada_p, generator)
+                loss = losses.logistic_g_loss(logits) / world
+                metrics["G_loss"] = global_sum(loss.detach())
+                metrics["fake_scores"] = global_sum(logits.detach().mean() / world)
+                total = loss
+                new_pl_mean = state.pl_mean
+                if do_pl and cfg.pl_weight != 0:
+                    nb_global = max(n_global // cfg.pl_batch_shrink, 1)
+                    if nb_global % world:
+                        raise ValueError(f"the path-length batch {nb_global} does not divide "
+                                         f"over {world} ranks")
+                    # This rank's rows of the global batch's first nb_global.
+                    z_pl, c_pl, h_pl = (None if t is None else shard_rows(t[:nb_global], mesh)
+                                        for t in (pl_draws["z"], gather(gen_c), gather(gen_h)))
+                    ws_pl = g.map_ws(z_pl, c_pl, h_pl)
+                    img_pl = g.synthesize(ws_pl, generator=generator)
+                    noise = shard_rows(pl_draws["pl_noise"], mesh) \
+                        / math.sqrt(img_pl.shape[2] * img_pl.shape[3])
+                    pl_len = losses.path_lengths(img_pl, ws_pl, noise.to(img_pl.dtype))
+                    # The penalty differentiates through the updated mean too, as
+                    # upstream's lerp does.
+                    pl_len_mean = pl_len.mean() if mesh is None \
+                        else global_sum(pl_len.sum()) / nb_global
+                    new_pl_mean = state.pl_mean + cfg.pl_decay * (pl_len_mean - state.pl_mean)
+                    pl_penalty = (pl_len - new_pl_mean).square().mean() / world
+                    metrics["pl_penalty"] = global_sum(pl_penalty.detach())
+                    total = total + pl_penalty * cfg.pl_weight * cfg.G_reg_interval
+                total.backward()
+            _fill_missing_grads(g)
+            if mesh is not None:
+                collectives.all_reduce_grads(g.parameters(), mesh)
+            metrics["G_grad_nonfinite"] = scrub_grads(g.parameters())
+            if debug_grads:
+                metrics["g_grads"] = _snapshot_grads(g)
+            state.g_opt.step()
+            state.pl_mean = new_pl_mean.detach()
 
         # ---- D phase: Dmain (+ Dr1) ----
-        state.d_opt.zero_grad(set_to_none=True)
-        with torch.no_grad():
-            img_fake = run_G(g, draws["z_d"], gen_c, gen_h, draws["cutoffs"][1],
-                             draws["z2s"][1], False, generator)
-        fake_logits = run_D(d, img_fake, gen_c, gen_h, state.ada_p, generator)
-        x_in = x_real.detach().requires_grad_(do_r1 and cfg.r1_gamma != 0)
-        real_logits = run_D(d, x_in, c, h, state.ada_p, generator)
-        loss_real, loss_fake = losses.logistic_d_loss(fake_logits, real_logits)
-        total = (loss_fake + loss_real) / world
-        metrics["D_loss"] = global_sum(total.detach())
-        metrics["real_scores"] = global_sum(real_logits.detach().mean() / world)
-        metrics["real_signs"] = global_sum(torch.sign(real_logits.detach()).mean() / world)
-        if x_in.requires_grad:
-            r1 = losses.r1_penalty(real_logits, x_in).mean() / world
-            metrics["r1_penalty"] = global_sum(r1.detach())
-            total = total + r1 * (cfg.r1_gamma / 2.0) * cfg.D_reg_interval
-        # Only D's parameters: the reals' own gradient is not needed.
-        total.backward(inputs=[p for p in d.parameters() if p.requires_grad])
-        _fill_missing_grads(d)
-        if mesh is not None:
-            collectives.all_reduce_grads(d.parameters(), mesh)
-        if cfg.freeze_d_layers > 0:
-            mask = freeze_d_mask(d, cfg.freeze_d_layers)
-            for name, p in d.named_parameters():
-                if not mask[name]:
-                    p.grad.zero_()
-        metrics["D_grad_nonfinite"] = scrub_grads(d.parameters())
-        if debug_grads:
-            metrics["d_grads"] = _snapshot_grads(d)
-        state.d_opt.step()
+        with span("phase/D"):
+            state.d_opt.zero_grad(set_to_none=True)
+            with torch.no_grad():
+                img_fake = run_G(g, draws["z_d"], gen_c, gen_h, draws["cutoffs"][1],
+                                 draws["z2s"][1], False, generator)
+            fake_logits = run_D(d, img_fake, gen_c, gen_h, state.ada_p, generator)
+            x_in = x_real.detach().requires_grad_(do_r1 and cfg.r1_gamma != 0)
+            real_logits = run_D(d, x_in, c, h, state.ada_p, generator)
+            loss_real, loss_fake = losses.logistic_d_loss(fake_logits, real_logits)
+            total = (loss_fake + loss_real) / world
+            metrics["D_loss"] = global_sum(total.detach())
+            metrics["real_scores"] = global_sum(real_logits.detach().mean() / world)
+            metrics["real_signs"] = global_sum(torch.sign(real_logits.detach()).mean() / world)
+            if x_in.requires_grad:
+                r1 = losses.r1_penalty(real_logits, x_in).mean() / world
+                metrics["r1_penalty"] = global_sum(r1.detach())
+                total = total + r1 * (cfg.r1_gamma / 2.0) * cfg.D_reg_interval
+            # Only D's parameters: the reals' own gradient is not needed.
+            total.backward(inputs=[p for p in d.parameters() if p.requires_grad])
+            _fill_missing_grads(d)
+            if mesh is not None:
+                collectives.all_reduce_grads(d.parameters(), mesh)
+            if cfg.freeze_d_layers > 0:
+                mask = freeze_d_mask(d, cfg.freeze_d_layers)
+                for name, p in d.named_parameters():
+                    if not mask[name]:
+                        p.grad.zero_()
+            metrics["D_grad_nonfinite"] = scrub_grads(d.parameters())
+            if debug_grads:
+                metrics["d_grads"] = _snapshot_grads(d)
+            state.d_opt.step()
 
         # ---- EMA with ramp-up (ref training_loop.py:527-535) ----
-        state.cur_nimg += n_global
-        ema_nimg = cfg.ema_kimg * 1000.0
-        if cfg.ema_rampup is not None:
-            ema_nimg = min(ema_nimg, state.cur_nimg * cfg.ema_rampup)
-        ema_update(state.g_ema, g, 0.5 ** (n_global / max(ema_nimg, 1e-8)))
+        with span("phase/ema"):
+            state.cur_nimg += n_global
+            ema_nimg = cfg.ema_kimg * 1000.0
+            if cfg.ema_rampup is not None:
+                ema_nimg = min(ema_nimg, state.cur_nimg * cfg.ema_rampup)
+            ema_update(state.g_ema, g, 0.5 ** (n_global / max(ema_nimg, 1e-8)))
 
         # ---- ADA sign statistic; ``ada_update`` moves p every ada_interval steps ----
         state.ada_sign_sum = state.ada_sign_sum + metrics["real_signs"] * n_global

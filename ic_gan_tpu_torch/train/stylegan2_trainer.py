@@ -20,7 +20,6 @@ JAX loop's ``fold_in(PRNGKey(seed), step)``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import time
@@ -61,8 +60,8 @@ class SG2LoopConfig:
     # torch.profiler window (ref annotates every phase: torch_utils/misc.py:
     # 136-142 and training_loop.py:346-351).  When set, steps
     # [profile_start, profile_start + profile_steps) are traced to
-    # profile_dir/trace.json, each step inside record_function
-    # "sg2_step/<phase>", phase main, main+pl, main+r1 or main+pl+r1.
+    # profile_dir/trace.json, each step inside its span "sg2_step/<phase>",
+    # phase main, main+pl, main+r1 or main+pl+r1 (``utils/spans.py``).
     profile_dir: Optional[str] = None
     profile_start: int = 12
     profile_steps: int = 3
@@ -163,11 +162,8 @@ class SG2Trainer:
                 batch = self.make_batch()
                 do_pl = (step % t.G_reg_interval) == 0 and t.pl_weight != 0
                 do_r1 = (step % t.D_reg_interval) == 0 and t.r1_gamma != 0
-                phase = "+".join(["main"] + (["pl"] if do_pl else []) + (["r1"] if do_r1 else []))
-                with (torch.profiler.record_function(f"sg2_step/{phase}") if prof
-                      else contextlib.nullcontext()):
-                    self.state, metrics = self.steps[(do_pl, do_r1)](
-                        self.state, batch, self.step_generator(step))
+                self.state, metrics = self.steps[(do_pl, do_r1)](
+                    self.state, batch, self.step_generator(step))
                 step += 1
                 if prof is not None and step == cfg.profile_start + cfg.profile_steps:
                     stop_profile(prof, self.device, cfg.profile_dir)

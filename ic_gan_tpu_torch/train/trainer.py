@@ -27,7 +27,6 @@ checkpoints, logs and sheets.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import os
@@ -118,8 +117,8 @@ class TrainerConfig:
     # TensorBoard event files next to the jsonl logs (native writer).
     enable_tb: bool = True
     # torch.profiler window: iterations [profile_start, profile_start + 3)
-    # traced to profile_dir/trace.json, each step inside record_function
-    # "train_step".
+    # traced to profile_dir/trace.json, each step inside its span
+    # "train_step" (``utils/spans.py``).
     profile_dir: Optional[str] = None
     profile_start: int = 10
 
@@ -502,10 +501,8 @@ class Trainer:
                     if cfg.profile_dir and itr == cfg.profile_start:
                         prof = start_profile(self.device)
                     batch = self.make_batch()
-                    with (torch.profiler.record_function("train_step") if prof
-                          else contextlib.nullcontext()):
-                        self.state, metrics = self.step_fn(
-                            self.state, batch, self.step_generator(itr))
+                    self.state, metrics = self.step_fn(
+                        self.state, batch, self.step_generator(itr))
                     self.history["itr"] += 1
                     itr += 1
                     if prof is not None and itr == cfg.profile_start + 3:
